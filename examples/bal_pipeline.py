@@ -1,7 +1,6 @@
 """Full BAL pipeline at Ladybug-49 statistics: load -> solve -> evaluate -> export.
 
-Real BAL downloads are impossible in this container (zero network egress —
-verified; see RESULTS.md), so this runs the complete FILE-LEVEL pipeline on a
+With no BAL download at hand, this runs the complete FILE-LEVEL pipeline on a
 BAL problem with the published Ladybug-49 statistics (49 cameras, 7776
 points, 31843 observations, BAL camera convention, radial distortion k1/k2,
 noisy "-pre"-style initial geometry):
@@ -23,13 +22,6 @@ import time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
-
-TPU3DRECON_CPU = os.environ.get("TPU3DRECON_CPU")
-if TPU3DRECON_CPU:
-    import jax
-
-    jax.config.update("jax_platforms", "cpu")
-
 
 def make_ladybug49_like(path: str, seed: int = 49) -> None:
     """Synthesize a BAL file with Ladybug-49's shape using BAL's OWN camera

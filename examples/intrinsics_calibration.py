@@ -6,7 +6,7 @@ distortion estimate).  Plain BA stalls — geometry cannot fully absorb radial
 distortion — while the BA <-> intrinsics alternation recovers the
 coefficients and the geometry together.
 
-Usage: TPU3DRECON_CPU=1 python examples/intrinsics_calibration.py
+Usage: python examples/intrinsics_calibration.py   (JAX_PLATFORMS=cpu for the host)
 """
 
 import dataclasses
@@ -15,11 +15,9 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-if os.environ.get("TPU3DRECON_CPU"):
-    import jax
+import jax
 
-    jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_enable_x64", True)  # calibration benefits from f64
+jax.config.update("jax_enable_x64", True)  # calibration benefits from f64
 
 import jax.numpy as jnp
 import numpy as np

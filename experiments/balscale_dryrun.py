@@ -3,11 +3,11 @@
 Modes:
   python experiments/balscale_dryrun.py cpu8   # 8-device virtual CPU mesh,
       sharded bucketed-grid engine, 1 LM iteration (compile + execute proof)
-  python experiments/balscale_dryrun.py tpu    # single real TPU chip, pallas
-      engine, 3 LM iterations, reports s/LM-iter (memory-feasibility proof)
-  python experiments/balscale_dryrun.py tpu_wtt  # single real TPU chip,
-      windowed track-table engine on a SEQUENTIAL-capture scene of the same
-      size (the layout that models real BAL trajectories), 3 LM iterations
+  python experiments/balscale_dryrun.py wtt [precond|fixedcg]  # one
+      accelerator, windowed track-table engine on a SEQUENTIAL-capture scene
+      (the layout that models real BAL trajectories), 3 LM iterations
+  python experiments/balscale_dryrun.py wtt_shuffled  # the same scene with
+      camera ids shuffled (RCM relabeling must recover the windows)
   python experiments/balscale_dryrun.py cpu8_wtt  # 8-device virtual CPU
       mesh, SHARDED windowed track-table engine at full BAL scale
 
@@ -82,43 +82,6 @@ def main_cpu8():
     }), flush=True)
 
 
-def main_tpu():
-    import jax
-
-    from tpu3drecon.solvers.ba_pallas import make_pallas_ba_solver
-    from tpu3drecon.solvers.bundle_adjust import BAConfig
-    from tpu3drecon.utils.compile_cache import enable_compilation_cache
-
-    enable_compilation_cache()
-    # Build host-side (grid packing is host work), then one device_put.
-    with jax.default_device(jax.local_devices(backend="cpu")[0]):
-        grid = build_problem()
-    from tpu3drecon.utils.placement import commit
-
-    grid = commit(grid)
-
-    config = BAConfig(maxiter=3, gtol=0.0, ftol=0.0, cg_maxiter=8, cg_rtol=1e-4)
-    solver = make_pallas_ba_solver(config)
-    t0 = time.time()
-    cams, pts, state = solver(grid)
-    jax.block_until_ready(pts)
-    jax.device_get(state.loss)
-    compile_s = time.time() - t0
-    t0 = time.time()
-    cams, pts, state = solver(grid)
-    jax.block_until_ready(pts)
-    loss = float(jax.device_get(state.loss))
-    run_s = time.time() - t0
-    print(json.dumps({
-        "mode": "tpu_pallas_single_chip", "cams": int(grid.n_cameras),
-        "points": int(grid.n_real_points), "lm_iters": 3,
-        "compile_s": round(compile_s, 1), "run_s": round(run_s, 2),
-        "s_per_lm_iter": round(run_s / 3, 3),
-        "loss": loss, "finite": loss == loss,
-        "accepted": int(jax.device_get(state.accepted)),
-    }), flush=True)
-
-
 def main_cpu8_wtt():
     import os
 
@@ -159,13 +122,15 @@ def main_cpu8_wtt():
     }), flush=True)
 
 
-def main_tpu_wtt(shuffled: bool = False):
+def main_wtt(shuffled: bool = False):
     import jax
 
     from tpu3drecon.solvers.ba_wtt import make_wtt_ba_solver
     from tpu3drecon.solvers.bundle_adjust import BAConfig
     from tpu3drecon.utils.compile_cache import enable_compilation_cache
+    from tpu3drecon.utils.device import device_info, require_accelerator
 
+    require_accelerator(what="balscale_dryrun wtt")
     enable_compilation_cache()
 
     from tpu3drecon.benchmark.balscale import bal_sequential_wtt
@@ -219,10 +184,9 @@ def main_tpu_wtt(shuffled: bool = False):
             # quality shows up as wall time + iteration count.
             cfg = BAConfig(maxiter=3, gtol=0.0, ftol=0.0, cg_maxiter=30,
                            cg_rtol=1e-6, precond=name)
-            solver = make_wtt_ba_solver(cfg, aot=True)
+            solver = make_wtt_ba_solver(cfg)
             t0 = time.time()
-            out = solver(wtt)
-            jax.device_get(out[2].loss)
+            jax.block_until_ready(solver(wtt))
             print(f"{name}: compile {time.time()-t0:.1f}s", flush=True)
             outs[name] = solver
         times = {name: [] for name in outs}
@@ -230,15 +194,14 @@ def main_tpu_wtt(shuffled: bool = False):
         for _ in range(4):
             for name, solver in outs.items():
                 t0 = time.time()
-                out = solver(wtt)
-                jax.device_get(out[2].loss)
+                out = jax.block_until_ready(solver(wtt))
                 times[name].append(time.time() - t0)
                 final[name] = out
         for name in outs:
             ts = sorted(times[name])
             st = final[name][2]
             print(json.dumps({
-                "mode": "tpu_wtt_precond", "precond": name,
+                "mode": "wtt_precond", "precond": name,
                 "best_s": round(ts[0], 3), "median_s": round(ts[len(ts)//2], 3),
                 "s_per_lm_iter": round(ts[0] / 3, 3),
                 "loss": float(jax.device_get(st.loss)),
@@ -251,27 +214,24 @@ def main_tpu_wtt(shuffled: bool = False):
     # LM step — a trajectory-independent s/LM-iter (the default early-exit
     # rtol makes runtime depend on how hard each step's linear system is,
     # which shifts with f32 accumulation-order changes between code
-    # versions; see RESULTS.md round 3).
+    # versions).
     fixed = len(sys.argv) > 2 and sys.argv[2] == "fixedcg"
     config = BAConfig(
         maxiter=3, gtol=0.0, ftol=0.0, cg_maxiter=8,
         cg_rtol=0.0 if fixed else 1e-4,
     )
-    aot = len(sys.argv) > 2 and sys.argv[2] == "aot"
-    solver = make_wtt_ba_solver(config, aot=aot)
+    solver = make_wtt_ba_solver(config)
     t0 = time.time()
-    cams, pts, state = solver(wtt)
-    jax.block_until_ready(pts)
-    jax.device_get(state.loss)
+    jax.block_until_ready(solver(wtt))
     compile_s = time.time() - t0
     t0 = time.time()
-    cams, pts, state = solver(wtt)
-    jax.block_until_ready(pts)
-    loss = float(jax.device_get(state.loss))
+    cams, pts, state = jax.block_until_ready(solver(wtt))
     run_s = time.time() - t0
+    loss = float(state.loss)
     print(json.dumps({
-        "mode": "tpu_wtt_shuffled" if shuffled else "tpu_wtt_single_chip",
-        "aot": aot, "fixed_cg": fixed, "cams": int(wtt.n_cameras),
+        "mode": "wtt_shuffled" if shuffled else "wtt_single_device",
+        "device": device_info().as_dict(),
+        "fixed_cg": fixed, "cams": int(wtt.n_cameras),
         "points": int(wtt.n_real_points), "obs": n_obs, "lm_iters": 3,
         "build_s": round(build_s, 1), "transfer_s": round(transfer_s, 1),
         "expand_s": round(expand_s, 1),
@@ -288,9 +248,9 @@ if __name__ == "__main__":
         main_cpu8()
     elif mode == "cpu8_wtt":
         main_cpu8_wtt()
-    elif mode == "tpu_wtt":
-        main_tpu_wtt()
-    elif mode == "tpu_wtt_shuffled":
-        main_tpu_wtt(shuffled=True)
+    elif mode == "wtt":
+        main_wtt()
+    elif mode == "wtt_shuffled":
+        main_wtt(shuffled=True)
     else:
-        main_tpu()
+        raise SystemExit(f"unknown mode {mode!r}")

@@ -1,6 +1,6 @@
 """Repro: wtt tridiag preconditioner NaN at BAL-like scale in f32.
 
-CPU, f32 (matching the TPU run's numerics), sequential scene at a reduced
+CPU, f32 (matching the accelerator run's numerics), sequential scene at a reduced
 BAL ratio; builds the wtt normal equations at the initial point and checks
 the tridiag factor + preconditioner apply for non-finite values, plus the
 E-block construction against a probed Schur matvec.

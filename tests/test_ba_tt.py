@@ -272,60 +272,3 @@ class TestTTSolveModes:
         assert s1 is s2
         cams, pts, state = s1(tt_problem)
         assert bool(jnp.isfinite(state.loss))
-
-    @pytest.mark.parametrize(
-        "extra", [dict(), dict(optimize_dist=True, optimize_pp=True)],
-        ids=["base", "dist+pp"],
-    )
-    def test_fused_kernels_match_xla(self, tt_problem, extra):
-        # The Pallas fused linearization (ops/pallas/tt_linearize.py) must
-        # reproduce the XLA path's trust-region trajectory (interpret mode
-        # emulates the kernels on CPU at f64).
-        config = BAConfig(
-            maxiter=4, gtol=0.0, ftol=0.0, cg_maxiter=20, cg_rtol=1e-10,
-            **extra,
-        )
-        cams_x, pts_x, st_x = ba_solve_tt(tt_problem, config)
-        cams_k, pts_k, st_k = ba_solve_tt(
-            tt_problem, config, kernels=True, interpret=True
-        )
-        assert int(st_k.accepted) == int(st_x.accepted)
-        np.testing.assert_allclose(
-            float(st_k.loss), float(st_x.loss), rtol=1e-9, atol=1e-24
-        )
-        np.testing.assert_allclose(
-            np.array(pts_k), np.array(pts_x), atol=1e-10
-        )
-        np.testing.assert_allclose(
-            np.array(cams_k.tvecs), np.array(cams_x.tvecs), atol=1e-10
-        )
-
-    @pytest.mark.parametrize("packed", [False, True], ids=["dense", "bits"])
-    def test_fully_fused_engine_matches_xla(self, flat_problem, packed):
-        # kernels='full': Pallas matvecs + cost too — and with the
-        # bit-packed one-hot (8 slots/byte, expanded in VMEM) the entire
-        # solve never streams a dense one-hot from HBM.
-        config = BAConfig(
-            maxiter=4, gtol=0.0, ftol=0.0, cg_maxiter=20, cg_rtol=1e-10,
-        )
-        tt = tt_from_flat(flat_problem, point_block=64)
-        prob = (
-            tt_from_flat(flat_problem, point_block=64, onehot_dtype="bits")
-            if packed else tt
-        )
-        cams_x, pts_x, st_x = ba_solve_tt(tt, config)
-        cams_k, pts_k, st_k = ba_solve_tt(
-            prob, config, kernels="full", interpret=True
-        )
-        assert int(st_k.accepted) == int(st_x.accepted)
-        # Near-zero losses (noiseless data, ~1e-15 after 4 iters) differ by
-        # accumulation order between the fused and XLA reductions.
-        np.testing.assert_allclose(
-            float(st_k.loss), float(st_x.loss), rtol=1e-6, atol=1e-20
-        )
-        np.testing.assert_allclose(np.array(pts_k), np.array(pts_x), atol=1e-8)
-
-    def test_bits_requires_full_engine(self, flat_problem):
-        bits = tt_from_flat(flat_problem, point_block=64, onehot_dtype="bits")
-        with pytest.raises(ValueError, match="kernels='full'"):
-            ba_solve_tt(bits, BAConfig(maxiter=2))

@@ -133,7 +133,7 @@ class TestWTTPacking:
         assert _choose_cap([]) == 1
 
     def test_grouping_merges_sequential_chunks(self):
-        # A long sequential scene must pack into FEW groups (the MXU wants
+        # A long sequential scene must pack into FEW groups (batched matmuls want
         # few large batches), with counts preserved.
         scene = make_sequential_scene(
             n_cameras=192, points_per_camera=16, track_span=4, seed=21
@@ -168,103 +168,6 @@ class TestWTTSolve:
             np.array(cams_w.fx_fy), np.array(cams_t.fx_fy), rtol=1e-6
         )
         np.testing.assert_allclose(np.array(pts_w), np.array(pts_t), atol=1e-6)
-
-    @pytest.mark.parametrize("kernel", [True, "index", "index2"])
-    def test_matvec_kernel_step_equivalent(self, wtt_problem, kernel):
-        """The single-pass Pallas PCG matvecs (ops/pallas/wtt_matvec.py,
-        interpret mode here) must reproduce the XLA two-pass trajectory.
-        'index' rebuilds one-hot tiles from WTTBucket.wcam with exact
-        3-term bf16-split dots (f32-faithful — in interpret mode the
-        split partials are computed in f32 and their sum is within ulps
-        of the unsplit product)."""
-        config = BAConfig(
-            maxiter=5, gtol=0.0, ftol=0.0, cg_maxiter=6, cg_rtol=1e-10,
-        )
-        _, _, st_x = ba_solve_wtt(wtt_problem, config)
-        _, _, st_k = ba_solve_wtt(
-            wtt_problem, config._replace(matvec_kernel=kernel)
-        )
-        assert int(st_k.accepted) == int(st_x.accepted)
-        np.testing.assert_allclose(
-            float(st_k.loss), float(st_x.loss), rtol=1e-8, atol=1e-18
-        )
-
-    def test_matvec_kernel_index1_converges(self, wtt_problem):
-        """The fast single-pass mode ('index1', bf16 operand: ~2e-3
-        operator perturbation) is NOT trajectory-equivalent; it must
-        still reach the same optimum basin."""
-        config = BAConfig(maxiter=12, cg_maxiter=12, cg_rtol=1e-8)
-        _, _, st_x = ba_solve_wtt(wtt_problem, config)
-        _, _, st_k = ba_solve_wtt(
-            wtt_problem, config._replace(matvec_kernel="index1")
-        )
-        assert np.isfinite(float(st_k.loss))
-        assert float(st_k.loss) <= max(10.0 * float(st_x.loss), 1e-6)
-
-    def test_matvec_kernel_mode_validated(self, wtt_problem):
-        with pytest.raises(ValueError, match="matvec_kernel"):
-            ba_solve_wtt(
-                wtt_problem, BAConfig(matvec_kernel="typo")
-            )
-
-    @pytest.mark.parametrize("precond", ["schur_jacobi", "jacobi_u"])
-    def test_linearize_kernel_step_equivalent(self, wtt_problem, precond):
-        """The fused Pallas contribution kernel (ops/pallas/
-        wtt_linearize.py, interpret mode here) must reproduce the
-        batched-XLA linearization trajectory for both the Schur-Jacobi
-        (u + g + coupling rows) and jacobi_u (u + g only) column sets."""
-        config = BAConfig(
-            maxiter=5, gtol=0.0, ftol=0.0, cg_maxiter=6, cg_rtol=1e-10,
-            precond=precond,
-        )
-        _, _, st_x = ba_solve_wtt(wtt_problem, config)
-        _, _, st_k = ba_solve_wtt(
-            wtt_problem, config._replace(linearize_kernel="index")
-        )
-        assert int(st_k.accepted) == int(st_x.accepted)
-        np.testing.assert_allclose(
-            float(st_k.loss), float(st_x.loss), rtol=1e-8, atol=1e-18
-        )
-
-    def test_linearize_kernel_production_config(self, wtt_problem):
-        """linearize_kernel='index' + matvec_kernel='index' +
-        optimize_dist — the full TPU production configuration — must
-        match the all-XLA trajectory (wider 11-param camera blocks)."""
-        config = BAConfig(
-            maxiter=4, gtol=0.0, ftol=0.0, cg_maxiter=6, cg_rtol=1e-10,
-            optimize_dist=True,
-        )
-        _, _, st_x = ba_solve_wtt(wtt_problem, config)
-        _, _, st_k = ba_solve_wtt(
-            wtt_problem,
-            config._replace(matvec_kernel="index", linearize_kernel="index"),
-        )
-        assert int(st_k.accepted) == int(st_x.accepted)
-        np.testing.assert_allclose(
-            float(st_k.loss), float(st_x.loss), rtol=1e-8, atol=1e-18
-        )
-
-    def test_linearize_kernel_mode_validated(self, wtt_problem):
-        with pytest.raises(ValueError, match="linearize_kernel"):
-            ba_solve_wtt(wtt_problem, BAConfig(linearize_kernel="typo"))
-
-    @pytest.mark.parametrize("precond", ["ssor", "tridiag"])
-    def test_linearize_kernel_band_preconds(self, wtt_problem, precond):
-        """The kernel's want_od path emits the band preconditioners'
-        S_{c,c+1} adjacent-pair rows from in-VMEM pair one-hots; the
-        trajectory must match the XLA pair-one-hot reduction."""
-        config = BAConfig(
-            maxiter=4, gtol=0.0, ftol=0.0, cg_maxiter=6, cg_rtol=1e-10,
-            precond=precond,
-        )
-        _, _, st_x = ba_solve_wtt(wtt_problem, config)
-        _, _, st_k = ba_solve_wtt(
-            wtt_problem, config._replace(linearize_kernel="index")
-        )
-        assert int(st_k.accepted) == int(st_x.accepted)
-        np.testing.assert_allclose(
-            float(st_k.loss), float(st_x.loss), rtol=1e-8, atol=1e-18
-        )
 
     def test_converges_to_gt_rmse(self, seq_problem, wtt_problem):
         # The line-trajectory scene is gauge-weak (cameras nearly collinear,
@@ -345,8 +248,8 @@ class TestDeferredOnehot:
             assert b.wcam.dtype == jnp.int16
         expanded = expand_onehots(deferred, onehot_dtype=jnp.float64)
         for bd, be in zip(direct.buckets, expanded.buckets):
-            # wcam is retained after expansion (the index matvec kernel
-            # reads it) and must agree with the direct pack's copy.
+            # wcam is retained after expansion (the compact form) and
+            # must agree with the direct pack's copy.
             np.testing.assert_array_equal(
                 np.asarray(be.wcam), np.asarray(bd.wcam)
             )
@@ -365,8 +268,7 @@ class TestDeferredOnehot:
     def test_onehot_dtype_ladder_bit_identical(self, seq_problem):
         """{0,1} is exact in bf16/int8/float8: every encoding must produce
         bit-equal dot inputs, hence bit-identical solves (the 1-byte
-        encodings exist to compress the dominant matvec HBM stream —
-        experiments/tpu_onehot_dtype.py)."""
+        encodings exist to compress the dominant matvec memory stream)."""
         from tpu3drecon.problems.wtt import expand_onehots
         from tpu3drecon.solvers.ba_wtt import make_wtt_ba_solver
 
@@ -424,21 +326,62 @@ class TestPlaneBudgetAutotune:
         p = types.SimpleNamespace(buckets=[b])
         return p
 
-    def test_budget_clamps_to_hbm(self, monkeypatch):
+    @pytest.fixture
+    def on_card(self, monkeypatch):
+        """Pretend to run on an 80 GB card (60 GB allocator limit)."""
+        from tpu3drecon.utils import device
+
+        monkeypatch.setattr(
+            device, "device_info",
+            lambda devices=None: device.DeviceInfo("gpu", "NVIDIA H100", 1),
+        )
+        monkeypatch.setattr(device, "memory_bytes", lambda d=None: 60_000_000_000)
+
+    def test_budget_clamps_to_hbm(self, on_card):
         from tpu3drecon.solvers import ba_wtt
 
-        monkeypatch.setattr(ba_wtt.jax, "default_backend", lambda: "tpu")
-        monkeypatch.setattr(ba_wtt, "_device_hbm_bytes", lambda: 15_500_000_000)
-        # Canonical BAL residency (~2.6 GB): clamp inactive, auto = 4.8 GB.
+        share = int(60_000_000_000 * ba_wtt._PLANE_SHARE)
+        # Small residency: the clamp is inactive, the budget is the share.
         small = self._fake_problem(2.1)
-        assert ba_wtt._contrib_plane_budget(small) == 4_800_000_000
-        # A 10 GB one-hot problem: budget shrinks to what fits.
-        big = self._fake_problem(10.0)
+        assert ba_wtt._contrib_plane_budget(small) == share
+        # A 50 GB one-hot problem: budget shrinks to what fits.
+        big = self._fake_problem(50.0)
         budget = ba_wtt._contrib_plane_budget(big)
-        assert 300_000_000 <= budget < 4_800_000_000
+        assert ba_wtt._MIN_PLANE_BYTES <= budget < share
         # Pathological residency: floor holds.
-        huge = self._fake_problem(20.0)
-        assert ba_wtt._contrib_plane_budget(huge) == 300_000_000
+        huge = self._fake_problem(70.0)
+        assert ba_wtt._contrib_plane_budget(huge) == ba_wtt._MIN_PLANE_BYTES
+
+    @pytest.mark.parametrize("limit", [16_000_000_000, 60_000_000_000])
+    def test_budget_follows_memory_limit(self, monkeypatch, on_card, limit):
+        """The budget is derived from the card's reported limit, not from a
+        constant sized for one card."""
+        from tpu3drecon.solvers import ba_wtt
+        from tpu3drecon.utils import device
+
+        monkeypatch.setattr(device, "memory_bytes", lambda d=None: limit)
+        assert ba_wtt._contrib_plane_budget() == int(limit * ba_wtt._PLANE_SHARE)
+
+    def test_host_budget_splits_across_devices(self):
+        """On the CPU backend the virtual devices share one host's RAM."""
+        import jax
+
+        from tpu3drecon.solvers import ba_wtt
+
+        assert ba_wtt._contrib_plane_budget() == (
+            ba_wtt._HOST_PLANE_BYTES // len(jax.devices())
+        )
+
+    def test_unknown_memory_is_an_error(self, monkeypatch, on_card):
+        from tpu3drecon.solvers import ba_wtt
+        from tpu3drecon.utils import device
+
+        def unknown(d=None):
+            raise RuntimeError("does not report its memory limit")
+
+        monkeypatch.setattr(device, "memory_bytes", unknown)
+        with pytest.raises(RuntimeError, match="memory limit"):
+            ba_wtt._contrib_plane_budget(self._fake_problem(1.0))
 
     def test_env_override_wins(self, monkeypatch):
         from tpu3drecon.solvers import ba_wtt
@@ -452,7 +395,7 @@ class TestSplitWindows:
     window classes (wtt_from_flat docstring): selection work is
     window_rows x slots, and the bucket-max window pays 256+ rows for
     chunks that individually span < 128 cameras — simulated 0.51x
-    selection MACs at BAL scale (experiments/wtt_window_stats2.py).
+    selection MACs at BAL scale.
     Values must be step-equivalent to the unsplit packing (same
     contributions, different f32 summation order)."""
 
@@ -509,34 +452,10 @@ class TestSplitWindows:
             np.array(pts_s), np.array(pts_b), atol=1e-8
         )
 
-    def test_fully_indexed_deferred(self, long_flat, packs):
-        """Split packing must ride the one-hot-free production path: a
-        DEFERRED split problem solved fully indexed (interpret-mode
-        Pallas) matches the dense unsplit XLA trajectory."""
-        base, _ = packs
-        deferred = wtt_from_flat(
-            long_flat, point_chunk=64, split_windows=True, defer_onehot=True
-        )
-        assert all(b.onehot is None for b in deferred.buckets)
-        config = BAConfig(
-            maxiter=3, gtol=0.0, ftol=0.0, cg_maxiter=6, cg_rtol=1e-10,
-        )
-        _, _, st_x = ba_solve_wtt(base, config)
-        _, _, st_k = ba_solve_wtt(
-            deferred,
-            config._replace(matvec_kernel="index", linearize_kernel="index"),
-        )
-        assert int(st_k.accepted) == int(st_x.accepted)
-        np.testing.assert_allclose(
-            float(st_k.loss), float(st_x.loss), rtol=1e-8, atol=1e-18
-        )
-
     def test_class_cap_coalescing(self, long_flat, packs):
         """An int ``split_windows`` caps the per-bucket class count via
         exact covering-bin merging (problems/wtt._coalesce_window_classes) —
-        fewer WTTBuckets = fewer Pallas kernel variants to compile (the
-        uncapped hub split's 23 classes cost a 112 s BAL compile+first
-        vs 26 s unsplit, experiments/tpu_split_windows.py).  cap=1 is
+        fewer WTTBuckets = fewer per-bucket ops to compile.  cap=1 is
         the strongest merge (every class folds into the widest) and must
         reproduce the unsplit solution exactly up to f64 noise."""
         base, split = packs

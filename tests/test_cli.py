@@ -41,7 +41,7 @@ def test_solve_bal_writes_output(bal_file, tmp_path, capsys):
     assert rmse < 0.05
 
 
-@pytest.mark.parametrize("engine", ["tt", "wtt", "grid", "pallas"])
+@pytest.mark.parametrize("engine", ["tt", "wtt", "grid"])
 def test_solve_bal_track_table_engines(bal_file, tmp_path, engine):
     out = tmp_path / f"solved_{engine}.txt"
     rc = main([
@@ -88,8 +88,8 @@ def test_precond_engine_validation(bal_file, tmp_path, capsys):
 
 
 def test_precond_auto_selection():
-    """auto = ssor for track-table engines at >=1000 cams (measured
-    guidance, RESULTS.md round 3), schur_jacobi otherwise."""
+    """auto = ssor for track-table engines at >=1000 cams (RESULTS.md),
+    schur_jacobi otherwise."""
     import argparse
 
     from tpu3drecon.cli import _config
@@ -103,63 +103,63 @@ def test_precond_auto_selection():
     assert _config(mk("wtt"), n_cameras=1712).precond == "ssor"
     assert _config(mk("tt"), n_cameras=1712).precond == "ssor"
     assert _config(mk("wtt"), n_cameras=100).precond == "schur_jacobi"
-    assert _config(mk("pallas"), n_cameras=1712).precond == "schur_jacobi"
+    assert _config(mk("grid"), n_cameras=1712).precond == "schur_jacobi"
     assert _config(mk("wtt", "schur_jacobi"), n_cameras=1712).precond == "schur_jacobi"
     assert _config(mk("tt", "tridiag"), n_cameras=10).precond == "tridiag"
 
 
-def test_kernel_flag_validation(capsys):
-    """--matvec/--linearize kernel flags are wtt-only, and the fused
-    linearize kernel refuses band preconditioners (it cannot produce
-    their adjacent-pair rows) — all as clean exit-2 usage errors."""
+def test_split_windows_flag_validation():
+    """--split-windows is a wtt packing concept: other engines reject it
+    as a clean exit-2 usage error instead of silently ignoring it; the
+    value parses as auto/on/off or a positive int class cap."""
     import argparse
 
-    from tpu3drecon.cli import _config
+    from tpu3drecon.cli import _config, _split_windows_arg
 
-    def mk(engine, precond="auto", matvec="auto", linearize="auto",
-           split_windows="auto"):
+    def mk(engine, split_windows):
         return argparse.Namespace(
-            engine=engine, precond=precond, matvec=matvec,
-            linearize=linearize, split_windows=split_windows, maxiter=5,
-            cg_maxiter=8, no_focal=False, loss="trivial",
+            engine=engine, precond="auto", split_windows=split_windows,
+            maxiter=5, cg_maxiter=8, no_focal=False, loss="trivial",
         )
 
-    with pytest.raises(SystemExit) as exc:
-        _config(mk("tt", matvec="index"), n_cameras=100)
-    assert exc.value.code == 2
-    with pytest.raises(SystemExit) as exc:
-        _config(mk("tt", linearize="index"), n_cameras=100)
-    assert exc.value.code == 2
-    # --split-windows is a wtt packing concept: reject on other engines
-    # instead of silently ignoring it (round-5 advisor finding).
-    with pytest.raises(SystemExit) as exc:
-        _config(mk("tt", split_windows="on"), n_cameras=100)
-    assert exc.value.code == 2
-    with pytest.raises(SystemExit) as exc:
-        _config(mk("grid", split_windows="off"), n_cameras=100)
-    assert exc.value.code == 2
-    with pytest.raises(SystemExit) as exc:
-        _config(mk("tt", split_windows=6), n_cameras=100)
-    assert exc.value.code == 2
-    # --split-windows parses auto/on/off plus an explicit positive int
-    # class cap (the cap-6 point of the measured hub ladder,
-    # experiments/tpu_hub_cap_ladder.py); junk is a clean argparse error.
-    from tpu3drecon.cli import _split_windows_arg
-
+    for engine, sw in (("tt", "on"), ("grid", "off"), ("tt", 6)):
+        with pytest.raises(SystemExit) as exc:
+            _config(mk(engine, sw), n_cameras=100)
+        assert exc.value.code == 2
     assert _split_windows_arg("auto") == "auto"
     assert _split_windows_arg("6") == 6
     for bad in ("0", "-3", "always"):
         with pytest.raises(argparse.ArgumentTypeError):
             _split_windows_arg(bad)
-    # auto on CPU keeps the XLA paths (kernels would run in interpret mode).
-    cfg = _config(mk("wtt"), n_cameras=100)
-    assert cfg.matvec_kernel is False and cfg.linearize_kernel is False
-    # explicit index on wtt + schur_jacobi is accepted on any backend.
-    cfg = _config(
-        mk("wtt", precond="schur_jacobi", matvec="index", linearize="index"),
-        n_cameras=100,
-    )
-    assert cfg.matvec_kernel == "index" and cfg.linearize_kernel == "index"
+
+
+@pytest.mark.parametrize(
+    "flags",
+    [["--engine", "pallas"], ["--matvec", "index"], ["--linearize", "index"],
+     ["--aot"]],
+    ids=["engine-pallas", "matvec", "linearize", "aot"],
+)
+def test_removed_flags_rejected(bal_file, flags, capsys):
+    """The kernel and executable-cache flags are gone: argparse refuses
+    them (exit 2) before any solve starts."""
+    with pytest.raises(SystemExit) as exc:
+        main(["solve-bal", bal_file, "--cpu", *flags])
+    assert exc.value.code == 2
+    assert "error" in capsys.readouterr().err
+
+
+def test_engine_choices():
+    """The CLI offers exactly the four XLA engines, flat by default."""
+    from tpu3drecon.cli import ENGINES
+
+    assert ENGINES == ("flat", "grid", "tt", "wtt")
+    import argparse
+
+    from tpu3drecon.cli import _add_common
+
+    p = argparse.ArgumentParser()
+    _add_common(p)
+    assert p.parse_args([]).engine == "flat"
 
 
 def test_solve_bal_wtt_infeasible_falls_back_to_grid(

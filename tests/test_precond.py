@@ -92,8 +92,7 @@ class TestBreakdownGuards:
     cholesky is NaN, which poisons PCG from z0, and pcg's residual test
     (``dot(r,r) > tol2``) is false for NaN so CG exits after 1 iteration
     with a junk step — measured at BAL scale as cg_iters collapsing to 1
-    and 2 rejected LM iterations per lambda drop
-    (experiments/tpu_wtt_cgexit.py)."""
+    and 2 rejected LM iterations per lambda drop (RESULTS.md)."""
 
     def test_guarded_cholesky_falls_back_per_block(self):
         from tpu3drecon.solvers.pcg import guarded_block_cholesky

@@ -231,25 +231,6 @@ class TestHubSplit:
         )
         np.testing.assert_allclose(np.array(pts_w), np.array(pts_t), atol=1e-6)
 
-    def test_linearize_kernel_matches_on_hub(self, hub_flat):
-        """The fused contribution kernel must be layout-agnostic: on a
-        hub/global split the one-hot rows are [local window | global
-        region] and wcam indexes that same row layout, so the in-VMEM
-        iota-compare rebuild covers hub couplings for free."""
-        config = BAConfig(
-            maxiter=3, gtol=0.0, ftol=0.0, cg_maxiter=8, cg_rtol=1e-10
-        )
-        wtt = wtt_from_flat(hub_flat, point_chunk=64, reorder_cameras="hub")
-        assert any(b.global_tiles > 0 for b in wtt.buckets)
-        _, _, st_x = ba_solve_wtt(wtt, config)
-        _, _, st_k = ba_solve_wtt(
-            wtt, config._replace(linearize_kernel="index")
-        )
-        assert int(st_k.accepted) == int(st_x.accepted)
-        np.testing.assert_allclose(
-            float(st_k.loss), float(st_x.loss), rtol=1e-8, atol=1e-18
-        )
-
     def test_split_windows_matches_on_hub(self, hub_flat):
         """split_windows under a hub split: points are re-sorted by
         (has_global, min_local_cam) so hub-free chunks drop the shared
@@ -305,12 +286,13 @@ class TestHubSplit:
         )
 
     def test_capped_hub_fully_indexed_deferred(self, hub_flat):
-        """The shipped TPU default combination on a hub scene: CAPPED
-        split + matvec/linearize 'index' + DEFERRED (wcam-only) packing.
-        The cap merges local-only chunks into global bins, whose
-        global-tile wcam rows must select exact zeros through the
-        in-VMEM iota-compare one-hot rebuild — pinned here against the
-        unsplit dense-one-hot XLA solve (interpret-mode Pallas, f64)."""
+        """CAPPED split + DEFERRED (wcam-only) packing on a hub scene,
+        expanded on the device: the cap merges local-only chunks into
+        global bins, whose global-tile wcam rows must expand to exact
+        zero selection rows — pinned against the unsplit dense-one-hot
+        solve (f64)."""
+        from tpu3drecon.problems.wtt import expand_onehots
+
         base = wtt_from_flat(hub_flat, point_chunk=64, reorder_cameras="hub")
         capped = wtt_from_flat(
             hub_flat, point_chunk=64, reorder_cameras="hub",
@@ -318,15 +300,12 @@ class TestHubSplit:
         )
         assert any(b.global_tiles > 0 for b in capped.buckets)
         assert all(b.onehot is None for b in capped.buckets)
-        # The cap must actually merge a local-only class into a global
-        # bin somewhere, or this test isn't exercising the zero-row path.
         config = BAConfig(
             maxiter=3, gtol=0.0, ftol=0.0, cg_maxiter=8, cg_rtol=1e-10
         )
         _, _, st_x = ba_solve_wtt(base, config)
         _, _, st_k = ba_solve_wtt(
-            capped,
-            config._replace(matvec_kernel="index", linearize_kernel="index"),
+            expand_onehots(capped, onehot_dtype=jnp.float64), config
         )
         assert int(st_k.accepted) == int(st_x.accepted)
         np.testing.assert_allclose(

@@ -62,81 +62,47 @@ class TestShardedWTT:
         assert rmse < 5e-3
         assert float(st_f.loss) < 1e-8
 
-    def test_index_kernels_sharded(self, problem_pair):
-        """The fully-indexed config (every one-hot consumer a Pallas
-        index kernel; interpret mode here) must work under shard_map and
-        match the single-device fully-indexed solve — the production
-        multi-chip configuration."""
-        flat, wtt = problem_pair
-        mesh = make_mesh(2)
-        cfg = TRAJ_CONFIG._replace(
-            matvec_kernel="index", linearize_kernel="index"
-        )
-        cams_s, pts_s, st_s = ba_solve_wtt_sharded(wtt, cfg, mesh=mesh)
-        cams_1, pts_1, st_1 = ba_solve_wtt(wtt, cfg)
-        assert int(st_s.accepted) == int(st_1.accepted)
-        np.testing.assert_allclose(
-            np.asarray(pts_s), np.asarray(pts_1), rtol=0, atol=1e-6
-        )
-        np.testing.assert_allclose(
-            np.asarray(cams_s.tvecs), np.asarray(cams_1.tvecs), rtol=0,
-            atol=1e-6,
-        )
+    def test_split_deferred_sharded(self, problem_pair):
+        """split_windows micro-chunked window classes + DEFERRED
+        (wcam-only) packing, expanded and then sharded: every bucket class
+        (a separate window width) must divide across the mesh and match
+        the single-device solve of the same problem (psum ordering only)
+        and, on loss, the dense unsplit solve.  Needs its own scene: the
+        module fixture's 24 cameras fit one 128-row window (c_pad = 128),
+        so nothing would split there."""
+        from tpu3drecon.problems.wtt import expand_onehots
 
-    def test_split_indexed_deferred_sharded(self, problem_pair):
-        """The FULL shipped TPU production combination (round-5 verdict
-        item 4) through shard_map: split_windows micro-chunked window
-        classes + matvec/linearize 'index' kernels + DEFERRED (wcam-only)
-        packing with no dense one-hot anywhere.  Deferred buckets carry
-        ``onehot=None``; the sharded placement and specs must pass the
-        empty subtree through, and every bucket class (a separate window
-        width) must divide across the mesh.  Pinned against the
-        single-device solve of the SAME split+indexed+deferred problem
-        (identical math modulo psum ordering) and, on loss, against the
-        dense unsplit XLA solve.  Needs its own scene: the module fixture's
-        24 cameras fit one 128-row window (c_pad = 128), so nothing would
-        split there."""
         scene = make_sequential_scene(
             n_cameras=160, points_per_camera=10, track_span=5, seed=25
         )
         noisy = perturb_scene(scene, seed=26, point2d_noise=0.0)
         flat, _ = scene_to_ba_problem(noisy, observed=scene, dtype=jnp.float64)
-        split = wtt_from_flat(
+        deferred = wtt_from_flat(
             flat, point_chunk=32, chunk_multiple=8, split_windows=True,
             defer_onehot=True,
         )
-        assert all(b.onehot is None for b in split.buckets)
-        assert all(b.wcam is not None for b in split.buckets)
+        assert all(b.onehot is None for b in deferred.buckets)
+        split = expand_onehots(deferred, onehot_dtype=jnp.float64)
         base = wtt_from_flat(flat, point_chunk=32, chunk_multiple=8)
         assert len(split.buckets) > len(base.buckets)  # classes really split
         mesh = make_mesh(2)
-        cfg = TRAJ_CONFIG._replace(
-            maxiter=2, matvec_kernel="index", linearize_kernel="index"
-        )
+        cfg = TRAJ_CONFIG._replace(maxiter=2)
         cams_s, pts_s, st_s = ba_solve_wtt_sharded(split, cfg, mesh=mesh)
         cams_1, pts_1, st_1 = ba_solve_wtt(split, cfg)
         assert int(st_s.accepted) == int(st_1.accepted)
-        # The index kernels' 3-term bf16-split dots are f32-FAITHFUL, not
-        # f64-faithful: sharded-vs-single differences sit at f32
-        # summation-order noise even on the f64 CPU mesh.  This scene's
-        # coordinates are O(6), so the floor is ~3e-6 relative (measured
-        # max 2.1e-5 abs on 0.7% of points after 2 accepted LM steps);
-        # the tiny-fixture pin above keeps the 1e-6 bar.
+        # This 160-camera line scene is gauge-weak: psum ordering moves a
+        # few points and cameras by up to ~5e-6 after two steps (measured
+        # on the f64 CPU mesh), where the 24-camera fixture holds 1e-6.
         np.testing.assert_allclose(
-            np.asarray(pts_s), np.asarray(pts_1), rtol=0, atol=1e-4
+            np.asarray(pts_s), np.asarray(pts_1), rtol=0, atol=1e-5
         )
         np.testing.assert_allclose(
             np.asarray(cams_s.tvecs), np.asarray(cams_1.tvecs), rtol=0,
-            atol=1e-4,
+            atol=1e-5,
         )
-        _, _, st_x = ba_solve_wtt(
-            base, TRAJ_CONFIG._replace(maxiter=2)
-        )
-        # vs the dense f64 XLA solve the kernels are f32-FAITHFUL, not
-        # f64-faithful (measured 2.0e-7 relative here) — the tight
-        # sharded-vs-single pin above is the bit-path equality check.
+        _, _, st_x = ba_solve_wtt(base, cfg)
         np.testing.assert_allclose(
-            float(st_s.loss), float(st_x.loss), rtol=1e-5, atol=1e-18
+            float(st_s.loss), float(st_x.loss), rtol=1e-6, atol=1e-18
         )
 
     def test_joint_distortion_sharded(self, problem_pair):

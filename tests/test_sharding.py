@@ -79,7 +79,7 @@ def test_solver_reuse_same_executable(problem):
 def test_bal_class_shapes_dry_run():
     # BAL-Ladybug-style ratio (many points, few cams) scaled for the CPU
     # mesh: validates the sharded solve at high point-to-camera ratios
-    # (BASELINE.json config #5 dry-run; full scale runs on real TPU pods).
+    # (BASELINE.json config #5 dry-run; full scale runs on the cards).
     from tpu3drecon.dataset.synthetic import make_scene, perturb_scene, scene_to_ba_problem
 
     scene = make_scene(n_cameras=40, n_points=20_000, obs_per_camera=600, seed=99)

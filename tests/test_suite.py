@@ -2,7 +2,7 @@
 
 Each BASELINE.md config must be runnable at tiny scale on the CPU mesh and
 emit a well-formed result dict with error bars; the full-scale defaults are
-exercised on real hardware by ``python bench.py --suite`` (RESULTS.md).
+exercised on the card by ``python bench.py --suite``.
 """
 
 import numpy as np
@@ -11,7 +11,10 @@ from tpu3drecon.benchmark import suite
 
 
 def _check_schema(res, unit):
-    assert set(res) == {"metric", "value", "unit", "vs_baseline", "extra"}
+    # vs_baseline only where a same-run baseline exists (scipy oracle,
+    # the RMSE target); no line carries a recorded number from another
+    # machine.
+    assert set(res) - {"vs_baseline"} == {"metric", "value", "unit", "extra"}
     assert res["unit"] == unit
     for key in ("median_s", "min_s", "max_s", "reps", "compile_s"):
         assert key in res["extra"], key
@@ -25,12 +28,6 @@ def test_pnp_parity_tiny():
     assert res["extra"]["max_rot_geodesic_err_vs_scipy_rad"] < 1e-4
     assert res["extra"]["max_tvec_err_vs_scipy"] < 2e-3
     assert res["extra"]["scipy_oracle_s"] > 0
-    # Small-batch latency decomposition (round-5 verdict item 6): the
-    # device-side estimate subtracts the per-call dispatch overhead solved
-    # from a fixed-work two-iteration-count pair.
-    assert 0.0 <= res["extra"]["device_s"] <= res["extra"]["median_s"]
-    assert res["extra"]["dispatch_overhead_s"] >= 0.0
-    assert res["extra"]["marginal_s_per_lm_iter"] >= 0.0
 
 
 def test_small_ba_tiny():

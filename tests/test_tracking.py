@@ -2,7 +2,7 @@
 
 vmap LM over many frames with shared intrinsics structure: one compiled
 executable, no per-frame recompiles.  CPU-scale version of the 500-frame
-target (the full-scale number is produced by bench-time runs on TPU).
+target (the full-scale number is produced by bench-time runs on the card).
 """
 
 import jax
@@ -15,7 +15,7 @@ from tpu3drecon.solvers.pose_refine import PoseRefiner, pose_params_pack
 
 
 def test_many_frames_single_executable():
-    # 32 frames on CPU — same code path as the 500-frame TPU config.
+    # 32 frames on CPU — same code path as the 500-frame config.
     scene = make_scene(n_cameras=32, n_points=400, obs_per_camera=200, seed=81)
     noisy = perturb_scene(
         scene, point3d_noise=0.0, camera_rotation_noise=1e-2,

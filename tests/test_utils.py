@@ -15,7 +15,7 @@ from tpu3drecon.utils.checkpoint import (
     restore_state,
     save_state,
 )
-from tpu3drecon.utils.timing import CompileRunTimer, device_sync, stopwatch
+from tpu3drecon.utils.timing import CompileRunTimer, stopwatch
 
 
 @pytest.fixture(scope="module")
@@ -111,7 +111,7 @@ class TestTiming:
         out = timer.measure(f, jnp.arange(1000.0), repeats=3)
         assert timer.compile_time is not None and timer.compile_time >= 0
         assert len(timer.run_times) == 3
-        device_sync(out)
+        jax.block_until_ready(out)
 
     def test_stopwatch_sink(self):
         sink = {}
@@ -238,7 +238,7 @@ class TestProblemCache:
 
     def test_corrupt_entry_rebuilds(self, tmp_path):
         """A truncated/stale pickle must be dropped and rebuilt, not crash
-        every consumer of the key (mirrors aot_cache behavior)."""
+        every consumer of the key."""
         import jax.numpy as jnp
 
         from tpu3drecon.utils.problem_cache import cached_problem

@@ -1,4 +1,4 @@
-"""tpu3drecon — a TPU-native 3D-reconstruction optimization framework.
+"""tpu3drecon — an accelerator-resident 3D-reconstruction optimization framework.
 
 Built from scratch with the capabilities of mokrueger/jaxopt-3D-reconstruction
 (see SURVEY.md at the repo root): COLMAP dataset ingestion into packed

@@ -1,8 +1,8 @@
-"""TPU solver adapters for the benchmark harness.
+"""This package's solver adapters for the benchmark harness.
 
 Counterparts of the reference's jaxopt adapters
 (reference: src/benchmark/jaxopt_benchmark/benchmark_pose_optimization.py,
-benchmark_bundle_adjustment.py, helpers.py): run the packed TPU solvers on a
+benchmark_bundle_adjustment.py, helpers.py): run the packed solvers on a
 Dataset, keep the compile-vs-optimize timing split, guard against NaN output
 (helpers.py:24-27,82-85), and re-materialize results into Camera/Point3D
 objects with explicit host numpy conversion (so pickles never retain device
@@ -82,12 +82,12 @@ def _cameras_to_objects(
     return out
 
 
-class TpuSinglePoseBenchmark(SinglePoseBenchmark):
-    """Batched PnP refinement on TPU (analog of
+class ReconSinglePoseBenchmark(SinglePoseBenchmark):
+    """Batched PnP refinement on the accelerator (analog of
     JaxoptSinglePoseBenchmarkBatched, benchmark_pose_optimization.py:14)."""
 
     FRAMEWORK = "tpu3drecon"
-    NAME = "TpuSinglePoseBenchmark"
+    NAME = "ReconSinglePoseBenchmark"
 
     def __init__(self, dataset: Dataset, loss: RobustLoss = RobustLoss.CAUCHY,
                  dtype=jnp.float32):
@@ -119,12 +119,12 @@ class TpuSinglePoseBenchmark(SinglePoseBenchmark):
         )
 
 
-class TpuBundleAdjustmentBenchmark(BundleAdjustmentBenchmark):
-    """Implicit-Schur BA on TPU (analog of JaxoptBundleAdjustmentBenchmark,
+class ReconBundleAdjustmentBenchmark(BundleAdjustmentBenchmark):
+    """Implicit-Schur BA on the accelerator (analog of JaxoptBundleAdjustmentBenchmark,
     benchmark_bundle_adjustment.py:21 — without its 15-cam/400-pt cap)."""
 
     FRAMEWORK = "tpu3drecon"
-    NAME = "TpuBundleAdjustmentBenchmark"
+    NAME = "ReconBundleAdjustmentBenchmark"
 
     def __init__(self, dataset: Dataset, dtype=jnp.float32):
         super().__init__(dataset)

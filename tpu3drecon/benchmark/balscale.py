@@ -1,9 +1,9 @@
 """The canonical BAL-class benchmark problem (shared by the experiments).
 
 1712 cameras / ~1M points / 3.81M observations on a sequential capture —
-BASELINE.md config #5 scale.  The host-side build costs 250-420 s, so it
+BASELINE.md config #5 scale.  The host-side build costs minutes, so it
 memoizes through utils/problem_cache.py; builder and cache key live HERE
-(one definition) so the four TPU experiments that share the problem can
+(one definition) so the benchmark and experiments that share it can
 never drift apart from the cache entry (an edited copy of the builder
 with an unbumped key would silently serve mismatched problems to
 interleaved A/B runs).

@@ -3,7 +3,7 @@
 Rebuild of the reference drivers (reference: src/benchmark_implementation/
 benchmark_impl_single_pose.py:24-80, benchmark_impl_bundle_adjustment.py:
 27-109) with the same entry-point semantics: ``benchmark_single_pose(dataset,
-**kw)`` and ``benchmark_bundle_adjustment(dataset)`` run the TPU solver plus
+**kw)`` and ``benchmark_bundle_adjustment(dataset)`` run this package's solver plus
 every available baseline on the same (reduced) dataset, compute
 cross-framework mean reprojection errors, persist pickles
 (timestamp + latest/), and optionally render the report suite.
@@ -25,9 +25,9 @@ from tpu3drecon.benchmark.adapters.scipy_adapter import (
     ScipyBundleAdjustmentBenchmark,
     ScipySinglePoseBenchmark,
 )
-from tpu3drecon.benchmark.adapters.tpu_adapters import (
-    TpuBundleAdjustmentBenchmark,
-    TpuSinglePoseBenchmark,
+from tpu3drecon.benchmark.adapters.recon_adapters import (
+    ReconBundleAdjustmentBenchmark,
+    ReconSinglePoseBenchmark,
 )
 from tpu3drecon.benchmark.harness import Benchmark, save_benchmarks
 from tpu3drecon.config import (
@@ -56,9 +56,9 @@ def benchmark_single_pose(
     benchmark_impl_single_pose.py:24-52 semantics)."""
     benchmarks: List[Benchmark] = []
 
-    tpu = TpuSinglePoseBenchmark(dataset)
-    tpu.benchmark(**solver_kwargs)
-    benchmarks.append(tpu)
+    ours = ReconSinglePoseBenchmark(dataset)
+    ours.benchmark(**solver_kwargs)
+    benchmarks.append(ours)
 
     if with_scipy_baseline:
         sp = ScipySinglePoseBenchmark(dataset)
@@ -97,9 +97,9 @@ def benchmark_bundle_adjustment(
     our default is the full dataset)."""
     benchmarks: List[Benchmark] = []
 
-    tpu = TpuBundleAdjustmentBenchmark(dataset)
-    tpu.benchmark(camera_limit=camera_limit, points_limit=points_limit)
-    benchmarks.append(tpu)
+    ours = ReconBundleAdjustmentBenchmark(dataset)
+    ours.benchmark(camera_limit=camera_limit, points_limit=points_limit)
+    benchmarks.append(ours)
 
     if with_scipy_baseline:
         sp = ScipyBundleAdjustmentBenchmark(dataset)

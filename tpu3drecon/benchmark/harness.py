@@ -97,17 +97,19 @@ class Benchmark(abc.ABC):
         Queue polled with a timeout (reference benchmark.py:112-168 used
         fork; we must SPAWN because forking after jax backend initialization
         deadlocks XLA).  ``platform`` pins the child's jax platform (e.g.
-        "cpu") — a spawned child would otherwise grab the default device."""
+        "cpu"); by default the child inherits the parent's configured
+        platform.  The parent never initializes a backend here, so the
+        child is the one process on the card."""
         ctx = multiprocessing.get_context("spawn")
         queue = ctx.Queue()
 
         if platform is None:
-            try:
-                import jax
+            # The parent's configured platform, read WITHOUT initializing a
+            # backend: a parent that touched the card would hold most of its
+            # memory, and the child would then fail to allocate.
+            import jax
 
-                platform = jax.default_backend()
-            except Exception:
-                platform = None
+            platform = jax.config.jax_platforms or None
 
         proc = ctx.Process(
             target=_subprocess_worker,

@@ -2,7 +2,7 @@
 
 Public surface mirrors the reference's ``src/dataset`` package (SURVEY.md §1
 L1) while the packed problem containers in ``tpu3drecon.problems`` carry the
-actual TPU data path.
+actual accelerator data path.
 """
 
 from tpu3drecon.dataset.camera_pose import (

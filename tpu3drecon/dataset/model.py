@@ -5,7 +5,7 @@ src/dataset/{camera.py,point.py,datasetEntry.py,imageMetadata.py,dataset.py})
 for users migrating from it — but deliberately THIN: the numerical work
 (projection, reprojection errors, noising, reduction) is vectorized over the
 whole scene with numpy/jnp instead of per-point Python loops, and conversion
-to the packed TPU problems (tpu3drecon.problems) is the intended hot path.
+to the packed problems (tpu3drecon.problems) is the intended hot path.
 """
 
 from __future__ import annotations

@@ -6,7 +6,7 @@ Covers both loss families of the reference:
   - CPU evaluation losses cauchy/trivial applied to squared errors
     (reference: src/dataset/loss_functions.py:7-17).
 
-For the TPU LM engine the recommended use is IRLS-style robust *whitening*:
+For the LM engines the recommended use is IRLS-style robust *whitening*:
 residuals are scaled by sqrt(rho'(s)) with s = ||r||^2, which preserves the
 Gauss-Newton structure (J stays 2-row per observation) while matching the
 robust objective to first order — the same scheme Ceres uses for its robust

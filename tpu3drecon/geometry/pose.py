@@ -17,9 +17,10 @@ import jax
 import jax.numpy as jnp
 
 # Small 3x3/3-vector matmuls at explicit HIGHEST precision: these run on
-# OUTPUT/eval paths outside any default_matmul_precision scope, where
-# TPU's bf16 default silently costs ~1e-3 of rotation accuracy
-# (measured on the pose-refiner output path, round 4).
+# OUTPUT/eval paths outside any default_matmul_precision scope, where an
+# accelerator's reduced-precision f32 matmul default (bf16 passes, or TF32
+# on the H100) silently costs ~1e-3 of rotation accuracy (measured on the
+# pose-refiner output path).
 _mm = functools.partial(jnp.matmul, precision=jax.lax.Precision.HIGHEST)
 
 # Conjugation matrix flipping the Y axis (LH Unity <-> RH COLMAP).

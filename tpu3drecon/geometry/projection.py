@@ -45,8 +45,9 @@ def world_to_camera(rmat: jax.Array, tvec: jax.Array, xyz: jax.Array) -> jax.Arr
     """World point -> camera-frame point for a W2C extrinsic (R, t).
 
     Explicit HIGHEST precision: this also runs on eval/output paths outside
-    any default_matmul_precision scope, where TPU's bf16 matmul default
-    would cost whole pixels of projection accuracy (round-4 finding)."""
+    any default_matmul_precision scope, where a reduced-precision f32
+    matmul default (TF32 on the H100) would cost whole pixels of
+    projection accuracy."""
     return jnp.matmul(rmat, xyz, precision=jax.lax.Precision.HIGHEST) + tvec
 
 

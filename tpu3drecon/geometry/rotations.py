@@ -1,12 +1,12 @@
 """Rotation algebra: Rodrigues vectors, quaternions, rotation matrices.
 
-TPU-native replacement for the reference's mix of scipy ``Rotation`` objects
+Accelerator-side replacement for the reference's mix of scipy ``Rotation`` objects
 (reference: src/dataset/camera_pose/camera_pose.py) and unguarded JAX Rodrigues
 math (reference: src/reconstruction/bundle_adjustment/utils.py:21-44, whose
 ``rot_mat_from_vec`` divides by ``theta`` with no theta->0 guard and whose
 ``pose_mat_to_vec`` runs on host numpy).  Everything here is pure jnp, safe at
 the theta->0 and theta->pi singularities, differentiable, and usable under
-jit/vmap/shard_map on TPU.
+jit/vmap/shard_map on any backend.
 
 Conventions:
   - Quaternions are ``wxyz`` (COLMAP order).  Helpers convert from scipy's
@@ -43,10 +43,11 @@ def rodrigues_to_matrix(rvec: jax.Array) -> jax.Array:
     which produces NaN at exactly zero rotation.
     """
     dtype = rvec.dtype
-    # sum(v*v), not dot: TPU lowers jnp.dot to a bf16 MXU dot by default,
-    # and this module's callers include OUTPUT paths outside any
-    # default_matmul_precision context (measured: bf16 here put ~6e-3 rad
-    # of error on converged pose-refiner results — round 4).
+    # sum(v*v), not dot: accelerators run f32 jnp.dot at reduced input
+    # precision by default (TF32 on the H100), and this module's callers
+    # include OUTPUT paths outside any default_matmul_precision context
+    # (measured: a bf16 dot here put ~6e-3 rad of error on converged
+    # pose-refiner results).
     theta2 = jnp.sum(rvec * rvec)
     small = theta2 < jnp.asarray(1e-8, dtype)
     # Guarded denominators: both branches of each where must be finite (and
@@ -122,7 +123,7 @@ def quat_to_rodrigues(q: jax.Array) -> jax.Array:
     q = jnp.where(q[0] < 0, -q, q)  # w >= 0 => angle in [0, pi]
     w = q[0]
     v = q[1:]
-    n2 = jnp.sum(v * v)  # not jnp.dot: bf16 on TPU outside precision scopes
+    n2 = jnp.sum(v * v)  # not jnp.dot: reduced precision outside precision scopes
     small = n2 < jnp.asarray(1e-12, dtype)
     n = jnp.sqrt(jnp.where(small, jnp.ones((), dtype), n2))
     w_safe = jnp.where(small, w, jnp.ones((), dtype))  # w can be 0 at theta=pi
@@ -135,7 +136,7 @@ def quat_to_rodrigues(q: jax.Array) -> jax.Array:
 def rodrigues_to_quat(rvec: jax.Array) -> jax.Array:
     """Rodrigues vector -> unit quaternion (wxyz), safe near zero."""
     dtype = rvec.dtype
-    theta2 = jnp.sum(rvec * rvec)  # not jnp.dot: bf16 on TPU (see above)
+    theta2 = jnp.sum(rvec * rvec)  # not jnp.dot: reduced precision (see above)
     small = theta2 < jnp.asarray(1e-8, dtype)
     theta = jnp.sqrt(jnp.where(small, jnp.ones((), dtype), theta2))
     half = 0.5 * theta

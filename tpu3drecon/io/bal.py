@@ -151,7 +151,7 @@ def export_bal(
 def _rodrigues_to_matrix_np(rvecs: np.ndarray) -> np.ndarray:
     """Batched axis-angle -> rotation matrix in float64 numpy.
 
-    IO conversions must not run through jax: on the TPU backend they silently
+    IO conversions must not run through jax: without x64 they silently
     truncate to f32, which costs ~1e-4 rad per round trip (~0.07 px at BAL
     focal lengths — measured, examples/bal_pipeline.py round-trip check).
     """
@@ -232,7 +232,7 @@ def ba_problem_from_bal(
     cam_idx, pt_idx, uv, cam_params, points = read_bal(path)
     n_cams = len(cam_params)
 
-    # Host float64 conversion (device math would truncate to f32 on TPU).
+    # Host float64 conversion (device math would truncate to f32).
     rmats = _rodrigues_to_matrix_np(cam_params[:, :3])
     tvecs = cam_params[:, 3:6]
     flip = np.diag([1.0, -1.0, -1.0])

@@ -1,6 +1,6 @@
 """COLMAP sparse-model records in packed struct-of-arrays (CSR) form.
 
-TPU-first redesign of the reference's loader output (reference:
+Array-first redesign of the reference's loader output (reference:
 src/dataset/loaders/colmap_dataset_loader/{cameras,images,points}.py), which
 materializes one Python dataclass per 2D/3D point (100k+ allocations per
 scene).  Here a parsed model is three flat record groups whose ragged

@@ -1,9 +1,9 @@
 """Device-mesh utilities for multi-chip solves.
 
 The reference has no distributed layer at all (SURVEY.md §2 "parallelism
-inventory": single host, single device).  This module is the comm layer of
-the TPU build: mesh construction over ICI, named shardings for the packed
-problem containers, and host helpers to place a problem on the mesh.
+inventory": single host, single device).  This module is the comm layer:
+mesh construction, named shardings for the packed problem containers, and
+host helpers to place a problem on the mesh.
 """
 
 from __future__ import annotations
@@ -24,9 +24,9 @@ def make_mesh(
 ) -> Mesh:
     """1-D mesh over the observation axis (the BA analog of data parallel).
 
-    Multi-slice topologies (ICI x DCN) can reshape this into 2-D meshes; for
-    BA the observation axis is the only large, embarrassingly-reducible axis,
-    so a flat mesh rides ICI exclusively.
+    For BA the observation axis is the only large, embarrassingly-reducible
+    axis, so a flat mesh is enough; the cards of one host reach each other
+    all to all over NVLink, so the mesh follows the algorithm alone.
     """
     devs = list(devices) if devices is not None else jax.devices()
     if n_devices is not None:
@@ -39,7 +39,7 @@ def mesh_key(mesh: Mesh) -> tuple:
 
     Solver caches must not key on ``id(mesh)``: a garbage-collected Mesh's
     address can be reused by a new Mesh, which would return a jitted solver
-    closed over the dead mesh's device layout (ADVICE.md round 2).
+    closed over the dead mesh's device layout.
     """
     return (
         tuple(d.id for d in mesh.devices.flat),

@@ -157,17 +157,16 @@ def ba_solve_grid_sharded(
     config: BAConfig = BAConfig(),
     mesh: Optional[Mesh] = None,
     axis_name: Optional[str] = None,
-    kernels: str = "auto",
 ) -> Tuple[CameraParams, jax.Array, BAState]:
     """Sharded bucketed-grid BA solve; replicated outputs matching
-    ba_solve_grid / ba_solve_pallas (points un-permuted)."""
+    ba_solve_grid (points un-permuted)."""
     if mesh is None:
         from tpu3drecon.parallel.mesh import make_mesh
 
         mesh = make_mesh(axis_name=axis_name or SHARD_AXIS)
     axis_name = axis_name or mesh.axis_names[0]
     placed = shard_grid_problem(problem, mesh, axis_name)
-    solver = make_sharded_grid_solver(mesh, config, axis_name, type(placed), kernels)
+    solver = make_sharded_grid_solver(mesh, config, axis_name, type(placed))
     cams, pts, state = solver(placed)
     pts = unpermute_points(pts, placed)
     state = state._replace(points3d=pts)
@@ -179,19 +178,10 @@ _SHARDED_GRID_CACHE: dict = {}
 
 def make_sharded_grid_solver(
     mesh: Mesh, config: BAConfig = BAConfig(), axis_name: str = SHARD_AXIS,
-    problem_type=BAGridBucketedProblem, kernels: str = "auto",
+    problem_type=BAGridBucketedProblem,
 ):
-    """Jitted shard_map solver for a mesh + config (cached).
-
-    ``kernels``: "pallas" uses the fused single-chip kernels
-    (ops/pallas/{cam_normal,coupling}) on each device's shard — the fast
-    engine IS the sharded engine; "xla" uses the grid-engine plane math;
-    "auto" picks pallas on TPU meshes and xla on CPU meshes (pallas on CPU
-    means interpret mode — fine for tests, slow at scale).
-    """
-    if kernels == "auto":
-        kernels = "pallas" if mesh.devices.ravel()[0].platform == "tpu" else "xla"
-    interpret = mesh.devices.ravel()[0].platform != "tpu"
+    """Jitted shard_map solver for a mesh + config (cached); each device
+    runs the grid-engine plane math on its shard."""
     from tpu3drecon.solvers.bundle_adjust import (
         DynamicBAParams,
         merge_dynamic_config,
@@ -199,7 +189,7 @@ def make_sharded_grid_solver(
     )
 
     static, dyn = split_dynamic_config(config)
-    key = (mesh_key(mesh), static, axis_name, kernels)
+    key = (mesh_key(mesh), static, axis_name)
     if key in _SHARDED_GRID_CACHE:
         jfn = _SHARDED_GRID_CACHE[key]
         return lambda placed, _j=jfn, _d=dyn: _j(placed, _d)
@@ -231,7 +221,7 @@ def make_sharded_grid_solver(
         def local(problem, d):
             return _solve_local(
                 problem, config=merge_dynamic_config(static, d),
-                axis_name=axis_name, kernels=kernels, interpret=interpret,
+                axis_name=axis_name,
             )
         out_specs = (
             CameraParams(rmats=rep, tvecs=rep, fx_fy=rep, cx_cy_skew=rep, dist=rep),
@@ -258,8 +248,7 @@ def make_sharded_grid_solver(
     return lambda placed, _j=jfn, _d=dyn: _j(placed, _d)
 
 
-def _solve_local(problem, *, config: BAConfig, axis_name: str,
-                 kernels: str = "xla", interpret: bool = True):
+def _solve_local(problem, *, config: BAConfig, axis_name: str):
     """Per-device solve body (runs inside shard_map on local shards)."""
     cams = problem.cameras  # camera-axis LOCAL shard
     dtype = problem.points3d.dtype
@@ -302,51 +291,15 @@ def _solve_local(problem, *, config: BAConfig, axis_name: str,
             jp = jp * 0.0
         return b._replace(jc=jc, jp=jp)
 
-    def blocks_for_pallas(rmats, tvecs, fx_fy, points3d_full):
-        """Same outputs via the fused cam_normal kernel on the local shard
-        (+ local U/g for free); planes transposed into the grid layout the
-        shared matvec code reads."""
-        from tpu3drecon.ops.pallas.cam_normal import cam_normal_fused
-        from tpu3drecon.solvers.ba_grid import GridBlocks
-
-        c_l = problem.uv.shape[0]
-        x_w = jnp.transpose(points3d_full[problem.pt_idx], (0, 2, 1))
-        uv_t = jnp.transpose(problem.uv, (0, 2, 1))
-        inv_w = (jnp.asarray(1.0, dtype) / problem.avg_cam_width).astype(dtype)
-        r_pl, jp_pl, jc_pl, u0, g0 = cam_normal_fused(
-            rmats, tvecs, fx_fy, cams.cx_cy_skew, cams.dist,
-            x_w, uv_t, problem.mask, inv_w, loss=config.loss,
-            interpret=interpret,
-        )
-        if not config.optimize_focal:
-            zero_rows = jnp.asarray([6, 7, 14, 15])
-            jc_pl = jc_pl.at[:, zero_rows, :].set(0.0)
-            keep = jnp.ones((8,), dtype).at[6:8].set(0.0)
-            u0 = u0 * keep[None, :, None] * keep[None, None, :]
-            g0 = g0 * keep[None, :]
-        if not config.optimize_points:
-            jp_pl = jp_pl * 0.0
-        r = jnp.transpose(r_pl, (0, 2, 1))  # (c_l, k, 2)
-        jc = jnp.transpose(jc_pl.reshape(c_l, 2, 8, k), (0, 3, 1, 2))
-        jp = jnp.transpose(jp_pl.reshape(c_l, 2, 3, k), (0, 3, 1, 2))
-        return GridBlocks(r=r, jc=jc, jp=jp), jc_pl, jp_pl, u0, g0
-
     def linearize(params, lam):
         rmats, tvecs, fx_fy, points3d_full = params
-        jc_pl = jp_pl = None
-        if kernels == "pallas":
-            b, jc_pl, jp_pl, u, g_cam = blocks_for_pallas(
-                rmats, tvecs, fx_fy, points3d_full
-            )
-            c_l = b.jc.shape[0]
-        else:
-            b = blocks_for(rmats, tvecs, fx_fy, points3d_full)
-            c_l = b.jc.shape[0]
-            # Camera side: local dense reductions.
-            jc2 = b.jc.reshape(c_l, k * 2, 8)
-            r2 = b.r.reshape(c_l, k * 2)
-            u = jnp.einsum("cni,cnj->cij", jc2, jc2)
-            g_cam = jnp.einsum("cni,cn->ci", jc2, r2)
+        b = blocks_for(rmats, tvecs, fx_fy, points3d_full)
+        c_l = b.jc.shape[0]
+        # Camera side: local dense reductions.
+        jc2 = b.jc.reshape(c_l, k * 2, 8)
+        r2 = b.r.reshape(c_l, k * 2)
+        u = jnp.einsum("cni,cnj->cij", jc2, jc2)
+        g_cam = jnp.einsum("cni,cn->ci", jc2, r2)
 
         # Transport packed [jp | r] rows to the point shards.
         jp_rows = b.jp.reshape(c_l * k, 6)
@@ -363,7 +316,7 @@ def _solve_local(problem, *, config: BAConfig, axis_name: str,
             jp_g = jpr_g[..., :6].reshape(pb, tb * 2, 3)
             r_g = jpr_g[..., 6:8].reshape(pb, tb * 2)
             # Tiny 3x3 outputs: broadcast-product + reduce, not batched
-            # micro-dots (layout trap, RESULTS.md round 3).
+            # micro-dots (layout trap, RESULTS.md).
             v = jnp.sum(jp_g[..., :, None] * jp_g[..., None, :], axis=1)
             g_pt = jnp.sum(jp_g * r_g[..., None], axis=1)
             buckets_jp_g.append(jp_g)
@@ -385,32 +338,18 @@ def _solve_local(problem, *, config: BAConfig, axis_name: str,
         if config.precond == "schur_jacobi":
             # v_inv for the local camera rows' points: one all_gather per
             # linearization (the camera shard references arbitrary points).
-            if kernels == "pallas":
-                from tpu3drecon.ops.pallas.coupling import coupling_fused
-
-                vinv6 = jnp.stack(
-                    [
-                        v_inv[:, 0, 0], v_inv[:, 0, 1], v_inv[:, 0, 2],
-                        v_inv[:, 1, 1], v_inv[:, 1, 2], v_inv[:, 2, 2],
-                    ],
-                    axis=1,
-                )
-                vinv6_full = gather_points(vinv6)
-                vinv6_g = jnp.transpose(vinv6_full[problem.pt_idx], (0, 2, 1))
-                coupling = coupling_fused(jc_pl, jp_pl, vinv6_g, interpret=interpret)
-            else:
-                vinv_full = gather_points(v_inv.reshape(-1, 9)).reshape(-1, 3, 3)
-                w_cell = (
-                    b.jc[..., 0, :, None] * b.jp[..., 0, None, :]
-                    + b.jc[..., 1, :, None] * b.jp[..., 1, None, :]
-                )
-                vinv_g = vinv_full[problem.pt_idx]
-                wv = (
-                    w_cell[..., 0, None] * vinv_g[..., None, 0, :]
-                    + w_cell[..., 1, None] * vinv_g[..., None, 1, :]
-                    + w_cell[..., 2, None] * vinv_g[..., None, 2, :]
-                )
-                coupling = jnp.einsum("ckil,ckml->cim", wv, w_cell)
+            vinv_full = gather_points(v_inv.reshape(-1, 9)).reshape(-1, 3, 3)
+            w_cell = (
+                b.jc[..., 0, :, None] * b.jp[..., 0, None, :]
+                + b.jc[..., 1, :, None] * b.jp[..., 1, None, :]
+            )
+            vinv_g = vinv_full[problem.pt_idx]
+            wv = (
+                w_cell[..., 0, None] * vinv_g[..., None, 0, :]
+                + w_cell[..., 1, None] * vinv_g[..., None, 1, :]
+                + w_cell[..., 2, None] * vinv_g[..., None, 2, :]
+            )
+            coupling = jnp.einsum("ckil,ckml->cim", wv, w_cell)
             precond_mat = u_d - coupling
         else:
             precond_mat = u_d
@@ -426,9 +365,8 @@ def _solve_local(problem, *, config: BAConfig, axis_name: str,
         """(W^T x) on the local point shard: all_gather the per-obs pair.
 
         Payload stays f32 (2 floats/row): complex64 packing would halve the
-        collective bytes but the LOCAL gather of complex64 hits XLA's slow
-        path (measured 2.9x, RESULTS.md round 2), and gathers cost per row
-        anyway.
+        collective bytes but the LOCAL gather of complex64 hit XLA's slow
+        path on the first accelerator.
         """
         c_l = nb.jc.shape[0]
         s = jnp.sum(nb.jc * x_local[:, None, None, :], axis=-1)  # (c_l, k, 2)

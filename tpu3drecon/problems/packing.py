@@ -1,4 +1,4 @@
-"""Packed, static-shape problem containers for the TPU solvers.
+"""Packed, static-shape problem containers for the solvers.
 
 The reference extracts per-camera Python lists from its object model and pads
 them ad hoc inside each benchmark adapter (reference: src/benchmark/
@@ -332,7 +332,7 @@ def colmap_model_with_solution(
     ids via ``meta.camera_ids``, packed point rows to point3D ids via
     ``meta.point_ids``; images/points the problem didn't cover keep their
     original values.  Pose conversion runs in host float64 (device-side
-    conversions truncate to f32 on TPU — see io/bal.py).
+    conversions truncate to f32 — see io/bal.py).
     """
     import dataclasses
 

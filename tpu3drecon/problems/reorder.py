@@ -4,8 +4,7 @@ The windowed track-table layout (problems/wtt.py) relies on each point
 chunk's observing cameras spanning a NARROW window of camera ids.  On
 sequential captures the raw ids already have that property; on shuffled or
 unstructured (photo-tourism) scenes they do not, and the windows degenerate
-toward c_pad — round 2's measured 5.6x cliff (VERDICT.md: wtt 0.132 vs grid
-0.738 s/LM-iter at BAL scale).
+toward c_pad and the engine loses its advantage.
 
 Camera ids are an arbitrary labeling, so we are free to relabel: reverse
 Cuthill-McKee on the camera co-visibility graph (cameras adjacent iff they

@@ -1,11 +1,10 @@
 """Track-table BA problem: the gather-free single-chip layout.
 
-Round-2 measurements (RESULTS.md) showed the grid engine's solve time is
-dominated by per-row transport between the camera-major grid and the
-point-major track table (~4-5 ns per gathered row on TPU v5e, independent of
-row width — i.e. HBM traffic on lane-padded rows, not arithmetic).  This
-layout removes the transport entirely by making the *track table the only
-observation layout*:
+The grid engine's solve time is dominated by per-row transport between the
+camera-major grid and the point-major track table (RESULTS.md, measured on
+the accelerator this layout was first built for; not yet re-measured on the
+H100).  This layout removes the transport entirely by making the *track
+table the only observation layout*:
 
   - every observation lives in exactly one slot of a track-length-bucketed
     (T, P) table (point-major), so every *per-point* reduction (V blocks,
@@ -14,19 +13,18 @@ observation layout*:
   - every *per-camera* interaction — parameter lookup per slot, U/g_cam
     accumulation, both halves of the Schur coupling — contracts a tiny
     (C, d) camera table against a precomputed {0,1} one-hot matrix
-    ``onehot[c, n] = mask[n] * [cam(n) == c]`` of shape (C, T*P).  On TPU a
-    one-hot contraction is an MXU matmul that streams the operands at HBM
-    bandwidth — there is no per-row gather cost at all;
+    ``onehot[c, n] = mask[n] * [cam(n) == c]`` of shape (C, T*P).  A
+    one-hot contraction is a matmul that streams its operands — there is no
+    per-row gather at all;
   - every array is stored *plane-major* (component axes leading, the big
-    slot axis last), so nothing pays the (8, 128) tile padding that narrow
-    trailing dims cost on TPU.
+    slot axis last), so narrow trailing dims never pad a tiled layout.
 
 The price is the dense one-hot matrix: C * (T*P) elements.  For the
 benchmark scale (C=100, ~270k slots) that is ~107 MB — cheap against the
 transport it removes.  It scales linearly in C, so this layout is for
 moderate camera counts (the builder refuses above ``max_onehot_bytes``);
-BAL-scale problems stay on the grid/pallas engines whose transport cost is
-amortized by sharding.
+BAL-scale problems go to the windowed engine (problems/wtt.py) or the grid
+engine, whose transport cost is amortized by sharding.
 
 No reference counterpart: the reference's jaxopt BA materializes a dense
 Jacobian (src/reconstruction/bundle_adjustment/bundle_adjustment.py:83-91)
@@ -54,9 +52,9 @@ class TTBucket:
 
     ``n = t * P_b + p`` flattens (T_b, P_b) row-major; ``onehot`` is indexed
     by that same flat order.  Single-chip problems store it FLAT (C, Tb*Pb)
-    — on TPU the (C, n) and (C, Tb, Pb) forms have different (8, 128) tile
-    layouts, so a per-use reshape of the biggest array in the problem is a
-    real HBM copy, not free.  The sharded placement
+    — the (C, n) and (C, Tb, Pb) forms can have different tiled layouts, so
+    a per-use reshape of the biggest array in the problem may be a real
+    copy.  The sharded placement
     (parallel/sharded_tt.shard_tt_problem) re-materializes it as
     (C, Tb, Pb) host-side so the point axis can carry a PartitionSpec; the
     engine accepts either form (solvers/ba_tt._flat_onehot).
@@ -108,24 +106,10 @@ def tt_from_flat(
     ``ValueError`` when the one-hot matrices would exceed ``max_onehot_bytes``
     (large camera counts belong on the windowed engine, problems/wtt.py).
 
-    ``onehot_dtype`` defaults to int8: {0,1} is exactly representable, the
-    engine's mixed-precision contractions convert it back exactly (the
-    widening convert fuses into the matmul operand read — proven for bf16
-    at 1.3-1.55x vs f32, experiments/tpu_bf16_onehot.py), and the 1-byte
-    encoding halves the stream again: neutral at bench scale where the
-    one-hot is small, 25% end-to-end at BAL scale on the wtt engine
-    (0.106 vs 0.141 s/LM-iter, experiments/tpu_onehot_dtype.py, round 4).
-    float8 measures slightly slower than int8; bf16 stays available.
-
-    ``onehot_dtype="bits"`` packs the one-hot 8 slots/byte (uint8,
-    bit-plane-within-tile order — see the pack-time comment): a further 16x cut
-    of the dominant HBM stream.  Bit-packed problems REQUIRE the
-    fully-fused Pallas engine (``ba_solve_tt(kernels="full")``), which
-    expands tiles in VMEM; the XLA einsum paths reject them loudly.
+    ``onehot_dtype`` defaults to int8: {0,1} is exactly representable and
+    the engine's mixed-precision contractions convert it back exactly, so
+    the 1-byte encoding quarters the one-hot stream at no cost in accuracy.
     """
-    bit_pack = onehot_dtype == "bits"
-    if bit_pack:
-        onehot_dtype = None
     g = grid_bucketed_from_flat(problem, bounds=bounds, point_block=point_block)
     guv = np.asarray(jax.device_get(g.uv))
     C, K = guv.shape[:2]
@@ -139,14 +123,11 @@ def tt_from_flat(
     import jax.numpy as _jnp
 
     oh_dtype = _jnp.int8 if onehot_dtype is None else onehot_dtype
-    if bit_pack:
-        onehot_bytes = C * total_slots // 8  # 8 slots per uint8 byte
-    else:
-        onehot_bytes = C * total_slots * _jnp.dtype(oh_dtype).itemsize
+    onehot_bytes = C * total_slots * _jnp.dtype(oh_dtype).itemsize
     if onehot_bytes > max_onehot_bytes:
         raise ValueError(
             f"track-table one-hot would be {onehot_bytes / 1e9:.2f} GB "
-            f"(C={C}, slots={total_slots}); use the grid/pallas engines for "
+            f"(C={C}, slots={total_slots}); use the wtt or grid engine for "
             "this camera count"
         )
 
@@ -168,22 +149,7 @@ def tt_from_flat(
         flat_mask = mask_planes.reshape(n)
         real = np.nonzero(flat_mask > 0)[0]
         onehot[flat_cam[real], real] = 1.0
-        if bit_pack:
-            # Bit-plane-within-tile layout (tile = the fused kernels' lane
-            # block, ops/pallas/tt_linearize._lane_block): within each tile
-            # of TLE slots, byte k bit j holds slot j*(TLE//8) + k, so the
-            # kernel expands by concatenating 8 shifted planes on the lane
-            # axis — the only uint8 expansion this Mosaic version lowers
-            # (experiments/tpu_bits_expand_probe.py).
-            tle = 1024 if Pb % 1024 == 0 else Pb
-            assert n % tle == 0 and tle % 8 == 0, (n, tle)
-            planes = onehot.astype(bool).reshape(C, n // tle, 8, tle // 8)
-            packed = np.zeros((C, n // tle, tle // 8), np.uint8)
-            for j in range(8):
-                packed |= planes[:, :, j, :].astype(np.uint8) << j
-            oh_arr = jnp.asarray(packed.reshape(C, n // 8))
-        else:
-            oh_arr = jnp.asarray(onehot, oh_dtype)
+        oh_arr = jnp.asarray(onehot, oh_dtype)
         buckets.append(
             TTBucket(
                 uv=jnp.asarray(uv_planes),

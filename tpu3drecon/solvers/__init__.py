@@ -8,7 +8,6 @@ from tpu3drecon.solvers.bundle_adjust import (
     make_ba_solver,
     reprojection_rmse,
 )
-from tpu3drecon.solvers.ba_pallas import ba_solve_pallas, make_pallas_ba_solver
 from tpu3drecon.solvers.intrinsics_refine import refine_intrinsics
 from tpu3drecon.solvers.lm_core import LMConfig, LMState, lm_solve, lm_solve_batched
 from tpu3drecon.solvers.pose_refine import (

@@ -2,20 +2,20 @@
 
 Same LM/implicit-Schur algorithm as tpu3drecon.solvers.bundle_adjust (same
 damping control, same convergence semantics — equality is asserted in
-tests/test_ba_grid.py), but every reduction is restructured for the TPU
-memory model using the (C, K) observation grid + (P, T) track table of
+tests/test_ba_grid.py), but every reduction is restructured scatter-free
+using the (C, K) observation grid + (P, T) track table of
 tpu3drecon.problems.grid:
 
   - per-observation blocks are computed as scalar *planes* over (C, K) —
     no per-observation tiny-matrix tensors with 2/3-wide trailing dims;
   - U, g_c and the camera half of every W matvec contract over the K axis
-    as batched matmuls (MXU);
+    as batched matmuls;
   - V, g_p and the point half of W^T matvecs gather via the track table and
     reduce densely over T — zero scatters anywhere in the solve.
 
 The flat-layout engine remains the multi-chip path (its segment-sums psum
-cleanly over an observation-sharded mesh); this one is the speed-of-light
-single-chip engine the benchmark runs.
+cleanly over an observation-sharded mesh); this one trades the flat
+engine's scatter-adds for gathers and batched matmuls.
 """
 
 from __future__ import annotations
@@ -56,8 +56,8 @@ def grid_blocks(
     dtype = points3d.dtype
     x_w = points3d[problem.pt_idx]  # (C, K, 3) gather
     # Explicit 3-term rotation apply: a 3-wide einsum contraction lowers to
-    # a dot_general that pads the 128-lane MXU (measured 2.9x end-to-end in
-    # the wtt engine, RESULTS.md round 3); mul+add chains stay on the VPU.
+    # a dot_general that matrix units pad badly (RESULTS.md); mul+add
+    # chains fuse into one elementwise pass.
     xc = (
         rmats[:, None, :, 0] * x_w[..., 0:1]
         + rmats[:, None, :, 1] * x_w[..., 1:2]
@@ -173,12 +173,12 @@ def build_grid_normal(
 
     jc2 = blocks.jc.reshape(C, K * 2, 8)
     r2 = blocks.r.reshape(C, K * 2)
-    u = jnp.einsum("cni,cnj->cij", jc2, jc2)  # batched MXU matmul
+    u = jnp.einsum("cni,cnj->cij", jc2, jc2)  # batched matmul
     g_cam = jnp.einsum("cni,cn->ci", jc2, r2)
 
     # One fused track gather: pack [Jp | r] per (obs, row) so each gathered
-    # row is 4 lanes (gathers of tiny rows are the TPU bottleneck; fusing
-    # halves the gather count), then one more for Jc (8 lanes).
+    # row is 4 wide (fusing halves the gather count), then one more for Jc
+    # (8 wide).
     packed = jnp.concatenate(
         [blocks.jp, blocks.r[..., None]], axis=-1
     ).reshape(C * K, 2, 4)
@@ -247,7 +247,7 @@ def w_times(nb: GridNormal, y_pt: jax.Array, problem: BAGridProblem) -> jax.Arra
 
 
 def wt_times(nb: GridNormal, x_cam: jax.Array, problem: BAGridProblem) -> jax.Array:
-    """(W^T x)_p — gathers x (a tiny (C,8) table, VMEM-resident) by the
+    """(W^T x)_p — gathers x (a tiny (C,8) table) by the
     per-track camera index instead of gathering a large intermediate, then
     reduces densely over the track axis."""
     x_g = x_cam[problem.track_cam]  # (P, T, 8) from a tiny source

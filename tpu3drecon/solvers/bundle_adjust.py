@@ -1,6 +1,6 @@
 """Bundle adjustment: LM with implicit Schur complement, fully on-chip.
 
-TPU-native replacement for the reference's jaxopt dense-Jacobian BA
+Accelerator-resident replacement for the reference's jaxopt dense-Jacobian BA
 (reference: src/reconstruction/bundle_adjustment/bundle_adjustment.py +
 jaxopt LevenbergMarquardt): jointly optimizes all camera poses (SE(3) local
 parameterization), focal lengths, and 3D points.  One outer
@@ -76,63 +76,18 @@ class BAConfig(NamedTuple):
     #                   D and S_{c,c+1} band — SPD by construction, no
     #                   guard; measured 1.7x fewer PCG iters than
     #                   schur_jacobi on sequential scenes.  tt/wtt only.
-    #                   TPU wall-clock guidance (RESULTS.md round 3): at
-    #                   100-256 cams schur_jacobi reaches any target RMSE
-    #                   faster; at BAL scale (1712 cams, sequential) ssor
-    #                   is ~2x faster to every loss target — use ssor for
-    #                   large (>=~1000 cams) sequential scenes.
+    #                   Wall-clock guidance from the earlier accelerator
+    #                   (RESULTS.md): schur_jacobi wins at 100-256 cams,
+    #                   ssor at BAL scale (>=~1000 cams, sequential).  Not
+    #                   yet re-measured on the H100.
     precond: str = "schur_jacobi"
-    # wtt engine only: compute the PCG coupling matvec W V^-1 W^T x with
-    # a single-pass Pallas kernel (ops/pallas/wtt_matvec.py):
-    #   True/"fused": dense one-hot streamed once per matvec instead of
-    #       twice — measured SLOWER than XLA (11.1 vs 7.6 ms/matvec at
-    #       BAL: Mosaic's HIGHEST dots cost 6 MXU passes).
-    #   "index":  one-hot tiles REBUILT in VMEM from WTTBucket.wcam
-    #       (iota-compare) + exact 3-term bf16-split dots — deletes the
-    #       2 GB/matvec one-hot stream AND 3 of the 6 passes.  Measured
-    #       3.93 vs 7.57 ms/matvec at BAL scale with max-rel-diff vs the
-    #       XLA path 2.3e-7 (= f32 accumulation-order noise); step-
-    #       equivalent (tests/test_ba_wtt.py).
-    #   "index2": 2-term split (2.77 ms/matvec, ~4e-6 operator fidelity
-    #       — near-exact but NOT bit-trajectory-equivalent).
-    #   "index1": single-pass bf16 variant (1.68 ms/matvec, ~2e-3
-    #       operator perturbation — NOT trajectory-equivalent).
-    # Any index mode also routes the rhs (W V^-1 g_pt) and
-    # back-substitution (W^T dc) products through the index kernels,
-    # ALWAYS at the exact 3-term split: reduced fidelity there wrecks
-    # convergence (measured 2.0e-2 -> 2.3e-1 12-iter BAL loss), while
-    # the CG operator tolerates it (CG is run inexact anyway).
-    # Off by default pending the full-solve A/B (experiments/
-    # tpu_index_matvec{,2,3}.py).
-    matvec_kernel: object = False
-    # wtt engine only: compute the linearization's contribution planes
-    # (damped-U pairs, gradient columns, Schur-Jacobi coupling) and their
-    # one-hot reduction in one fused Pallas pass
-    # (ops/pallas/wtt_linearize.py, "index") instead of materializing
-    # ~8-9 GB of plane tensors through XLA — the dominant share of the
-    # BAL-scale linearize (measured 42.4 -> 18.2 ms, experiments/
-    # tpu_lin_kernel_ab.py).  Exact (3-term bf16-split dots,
-    # f32-faithful); requires WTTBucket.wcam.  Band preconditioners
-    # (ssor/tridiag) ride the same pass: the kernel emits their
-    # S_{c,c+1} adjacent-pair rows from in-VMEM pair one-hots.
-    # "index2" drops the third split term (~1e-5 contribution fidelity,
-    # cheaper MXU passes — near-exact speed mode, pairs with
-    # matvec_kernel="index2").
-    linearize_kernel: object = False
     # Track-table engines: store the per-slot jc/jp Jacobian planes used by
     # the CG matvec / rhs / back-substitution in bfloat16 (the U/V/coupling
     # reductions inside the linearization stay f32).  The CG matvec streams
-    # are the dominant HBM term at BAL scale (72% of bytes/iter —
-    # experiments/roofline.py), and jc/jp are half of that stream; CG runs
-    # inexact (fixed budget) anyway, so a ~0.4% matvec perturbation costs
-    # step quality far less than the bandwidth it saves.  Off by default;
-    # see RESULTS.md round 4 for the interleaved A/B.
+    # are the dominant memory term at BAL scale, and jc/jp are half of that
+    # stream; CG runs inexact (fixed budget) anyway, so a ~0.4% matvec
+    # perturbation costs little step quality.  Off by default.
     matvec_bf16: bool = False
-    # complex64-pack the transport gathers (pallas engine).  MEASURED NEGATIVE
-    # on TPU v5e (RESULTS.md round 2): packing made the solve 2.9x SLOWER
-    # (complex64 gathers hit an XLA slow path) — keep False; the code path
-    # stays for future element-width experiments.
-    packed_gathers: bool = False
 
 
 def n_cam_params(config: "BAConfig") -> int:
@@ -181,7 +136,10 @@ def dynamic_operands(config: "BAConfig") -> "DynamicBAParams":
     """
     import jax.numpy as jnp
 
-    dyn = _DYN_OPERAND_CACHE.get(config)
+    # Keyed by the x64 flag too: operands made under x64 are f64, and one
+    # process may run f32 solves beside an f64 reference.
+    key = (config, bool(jax.config.jax_enable_x64))
+    dyn = _DYN_OPERAND_CACHE.get(key)
     if dyn is None:
         # Float tolerances keep the default float width (f64 under x64, f32
         # otherwise) so the dynamic path rounds identically to baked constants.
@@ -193,7 +151,7 @@ def dynamic_operands(config: "BAConfig") -> "DynamicBAParams":
             cg_maxiter=jnp.asarray(config.cg_maxiter, jnp.int32),
             cg_rtol=jnp.asarray(float(config.cg_rtol)),
         )
-        _DYN_OPERAND_CACHE[config] = dyn
+        _DYN_OPERAND_CACHE[key] = dyn
     return dyn
 
 
@@ -283,9 +241,10 @@ def ba_solve(
             f"precond={config.precond!r} is supported by the tt/wtt "
             "engines only"
         )
-    # TPU matmuls default to bf16 inputs on the MXU; the tiny 2x8/3x3 block
-    # algebra here is bandwidth-bound anyway, so force full f32 precision —
-    # without this the f32 solve stalls ~4 orders of magnitude short (see
+    # Accelerator f32 matmuls default to reduced-precision inputs (TF32 on
+    # the H100's tensor cores); the tiny 2x8/3x3 block algebra here is
+    # bandwidth-bound anyway, so force true f32 — without this the f32
+    # solve stalls orders of magnitude short (see
     # tests/test_bundle_adjust.py::test_float32's RMSE bar).
     with jax.default_matmul_precision("highest"):
         return _ba_solve_impl(problem, config, axis_name)

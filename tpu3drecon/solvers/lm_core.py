@@ -263,7 +263,7 @@ def lm_solve_batched(
 ):
     """vmap of ``lm_solve`` over a leading batch axis of every argument.
 
-    TPU analog of the reference's ``jax.jit(jax.vmap(lm.run))``
+    Accelerator analog of the reference's ``jax.jit(jax.vmap(lm.run))``
     (pose_optimization.py:71): one compiled executable refines B poses in
     lockstep with static shapes.
     """

@@ -89,8 +89,7 @@ def guarded_block_cholesky(precond_mat: jax.Array, u_d: jax.Array) -> jax.Array:
     from ``z0`` — the residual test is false for NaN, so CG exits after
     one iteration with a junk step the trust region must reject.  Measured
     at BAL scale as cg_iters collapsing to 1 and two rejected LM
-    iterations after every accepted one (experiments/tpu_wtt_cgexit.py,
-    lam ~3e-5).  Blocks whose Schur cholesky fails fall back to the
+    iterations after every accepted one (lam ~3e-5, RESULTS.md).  Blocks whose Schur cholesky fails fall back to the
     cholesky of the damped U block — SPD by construction (PSD
     Gauss-Newton sum plus positive diagonal damping), i.e. plain
     block-Jacobi for exactly the unsound cameras, bit-identical factors

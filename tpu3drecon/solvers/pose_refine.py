@@ -1,4 +1,4 @@
-"""Batched single-camera pose (PnP) refinement on TPU.
+"""Batched single-camera pose (PnP) refinement on the accelerator.
 
 Rebuilds the reference's single-pose pipeline (reference:
 src/reconstruction/bundle_adjustment/pose_optimization.py) on the first-party
@@ -116,13 +116,11 @@ class PoseRefiner:
         loss: RobustLoss = RobustLoss.CAUCHY,
         residual_form: str = "per_axis",
         config: LMConfig = LMConfig(maxiter=100, gtol=1e-7),
-        aot: bool = False,
     ):
         self.avg_cam_width = avg_cam_width
         self.loss = loss
         self.residual_form = residual_form
         self.config = config
-        self.aot = aot
         self.solver = self._build_solver()
 
     _JIT_CACHE: dict = {}
@@ -173,15 +171,6 @@ class PoseRefiner:
                 jax.vmap(solve_one, in_axes=(0, 0, 0, 0, 0, 0, None, None))
             )
             PoseRefiner._JIT_CACHE[key] = jfn
-        if self.aot:
-            # Persistent executable cache (utils/aot_cache.py): the suite's
-            # PnP/tracking configs paid a fresh 40-100 s XLA compile every
-            # process (round-5 verdict item 5); with the semantic key a warm
-            # process deserializes in ~1-2 s.  The dynamic LM operands ride
-            # as arguments, so one entry serves all tolerance settings.
-            from tpu3drecon.utils.aot_cache import aot_wrap
-
-            jfn = aot_wrap(jfn, semantic_key=f"pose|{key!r}")
 
         box = []  # operand arrays, created on first call (not construction)
 
@@ -225,11 +214,10 @@ def refine_poses(
     loss: RobustLoss = RobustLoss.CAUCHY,
     config: LMConfig = LMConfig(maxiter=100, gtol=1e-7),
     residual_form: str = "per_axis",
-    aot: bool = False,
 ) -> Tuple[CameraParams, LMState]:
     """Functional one-call refinement of every camera in a PoseProblem."""
     refiner = PoseRefiner(
-        float(problem.avg_cam_width), loss, residual_form, config, aot=aot
+        float(problem.avg_cam_width), loss, residual_form, config
     )
     params0 = pose_params_pack(problem.cameras)
     params, state = refiner.optimize(

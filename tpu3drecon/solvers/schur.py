@@ -15,7 +15,7 @@ camera system
 
 is solved matrix-free by preconditioned CG whose matvec is two segment-sums
 and two gathers — no J, JtJ, or S is ever materialized.  This is the
-TPU-native replacement for the reference's dense-Jacobian LM wall
+accelerator-resident replacement for the reference's dense-Jacobian LM wall
 (SURVEY.md §7; reference capped at 15 cams / 400 pts,
 benchmark_impl_bundle_adjustment.py:28-29), and the structure that shards
 over the device mesh (shard the observation axis, psum the segment sums —
@@ -41,8 +41,7 @@ def _maybe_psum(x: jax.Array, axis_name: Optional[str]) -> jax.Array:
 def segment_outer(a: jax.Array, b: jax.Array, idx: jax.Array, num: int) -> jax.Array:
     """sum_k a[k]^T b[k] accumulated per segment: (N,2,m),(N,2,n) -> (num,m,n)."""
     # Explicit 2-term outer product: a 2-wide einsum contraction lowers to
-    # an MXU-padded dot_general (measured 2.9x end-to-end in the wtt
-    # engine, RESULTS.md round 3); broadcast mul+add stays on the VPU.
+    # a badly padded dot_general (RESULTS.md); broadcast mul+add fuses.
     per_obs = (
         a[:, 0, :, None] * b[:, 0, None, :] + a[:, 1, :, None] * b[:, 1, None, :]
     )
@@ -72,7 +71,7 @@ class NormalBlocks(NamedTuple):
 def inv3x3(m: jax.Array) -> jax.Array:
     """Closed-form inverse of a batch of 3x3 SPD matrices (adjugate form).
 
-    Cheaper than LU/cholesky dispatch per tiny block on TPU; damping
+    Cheaper than LU/cholesky dispatch per tiny block; damping
     guarantees well-conditioned inputs.
     """
     a, b, c = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]

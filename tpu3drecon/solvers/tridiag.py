@@ -18,7 +18,7 @@ exact factorization of the modified (still SPD) preconditioner.
 
 ``segments`` splits the camera chain into independent sub-chains
 (block-Jacobi of tridiagonal segments, dropping the segments-1 boundary
-interfaces): the scans vmap over segments, so the TPU-hostile sequential
+interfaces): the scans vmap over segments, so the sequential
 depth falls from C to C/segments while the preconditioner stays exact
 inside every segment.  At BAL scale (c_pad 1792) segment length 128 turns
 ~1.8k sequential tiny-block steps per sweep into 128.

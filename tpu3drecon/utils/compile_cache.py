@@ -1,14 +1,14 @@
-"""Persistent XLA compilation cache.
+"""Persistent XLA compilation cache, placed from outside.
 
-The headline solve costs ~24 s of fresh-process compile (BENCH_r01.json);
-jax's persistent compilation cache amortizes that to a disk read for every
-process after the first.  Call ``enable_compilation_cache()`` BEFORE the
-first jit execution (it only sets config, so any time before the first
-compile works).
+jax's persistent compilation cache turns a fresh process's compile of the
+solve into a disk read for every process after the first.  Call
+``enable_compilation_cache()`` BEFORE the first jit execution (it only sets
+config, so any time before the first compile works).
 
-The cache lives inside the repo (.jax_cache/, gitignored) because this
-container must not write outside it; point TPU3DRECON_CACHE_DIR elsewhere in
-real deployments.
+Where the cache lives is the deployment's choice: ``JAX_COMPILATION_CACHE_DIR``
+names it, and then this module sets nothing else.  Unset, the cache goes to
+the fixed ``<checkout>/.jax_cache`` (gitignored): the path is part of the
+cache key, so a directory that moves between runs never hits.
 """
 
 from __future__ import annotations
@@ -16,37 +16,39 @@ from __future__ import annotations
 import os
 from pathlib import Path
 
-_DEFAULT_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
+DEFAULT_DIR = Path(__file__).resolve().parents[2] / ".jax_cache"
+_ENV = "JAX_COMPILATION_CACHE_DIR"
 
 
-def enable_compilation_cache(cache_dir: str | os.PathLike | None = None) -> str:
+def cache_dir() -> Path:
+    """The directory the cache uses: ``$JAX_COMPILATION_CACHE_DIR`` or the
+    fixed default."""
+    return Path(os.environ.get(_ENV) or DEFAULT_DIR)
+
+
+def enable_compilation_cache() -> str:
     """Enable jax's persistent compilation cache; returns the cache dir.
 
-    ``TPU3DRECON_CACHE_DISABLE=1`` makes this a no-op: the test suite sets
-    it because jax's cache WRITE path (executable serialization + zstd) has
-    segfaulted suite runs twice under concurrent load, and the cache buys
-    nothing on the fast-compiling virtual CPU mesh.
+    With ``JAX_COMPILATION_CACHE_DIR`` set, jax reads that variable itself
+    and this function changes no setting.  ``TPU3DRECON_CACHE_DISABLE=1``
+    makes this a no-op: the test suite sets it because jax's cache WRITE
+    path has segfaulted suite runs under concurrent load, and the cache
+    buys nothing on the fast-compiling virtual CPU mesh.
     """
     import jax
 
     if os.environ.get("TPU3DRECON_CACHE_DISABLE"):
         return ""
-    path = Path(
-        cache_dir
-        or os.environ.get("TPU3DRECON_CACHE_DIR")
-        or _DEFAULT_DIR
-    )
-    path.mkdir(parents=True, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", str(path))
-    # Cache everything that takes >=1s to compile, regardless of size.
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
-    return str(path)
+    if os.environ.get(_ENV):
+        return os.environ[_ENV]
+    DEFAULT_DIR.mkdir(parents=True, exist_ok=True)
+    jax.config.update("jax_compilation_cache_dir", str(DEFAULT_DIR))
+    return str(DEFAULT_DIR)
 
 
-def cache_entry_count(cache_dir: str | os.PathLike | None = None) -> int:
+def cache_entry_count() -> int:
     """Number of cached executables currently on disk (0 if no cache yet)."""
-    path = Path(cache_dir or os.environ.get("TPU3DRECON_CACHE_DIR") or _DEFAULT_DIR)
+    path = cache_dir()
     if not path.is_dir():
         return 0
     return sum(1 for p in path.iterdir() if p.is_file())

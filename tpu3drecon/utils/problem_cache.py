@@ -1,19 +1,18 @@
 """Disk cache for expensive host-side problem builds.
 
 BAL-scale packing (synthetic scene generation + flat packing +
-``wtt_from_flat``) is 250-420 s of host-side numpy/jax-CPU work per
+``wtt_from_flat``) is minutes of host-side numpy/jax-CPU work per
 process — paid again by every experiment/benchmark process even when the
-XLA compile itself is served by the AOT executable cache
-(utils/aot_cache.py).  This module memoizes the *built problem pytree*
-on disk, with every array leaf converted to numpy so that
+XLA compile itself is served by jax's persistent compilation cache
+(utils/compile_cache.py).  This module memoizes the *built problem
+pytree* on disk, with every array leaf converted to numpy so that
 
 - no device buffers are pickled (jax arrays don't round-trip), and
 - a cache hit needs no jax at all; ``utils/placement.commit`` later
-  places numpy leaves on the target device at native transfer speed
-  (the CPU-jax-array streaming trap cannot occur).
+  places numpy leaves on the target device.
 
 Reference anchor: the reference rebuilds datasets from disk per run
-(/root/reference/src/dataset/loaders/colmap_dataset_loader/loader.py),
+(src/dataset/loaders/colmap_dataset_loader/loader.py),
 caching nothing; this is a capability it lacks.
 
 Usage::
